@@ -1,0 +1,260 @@
+"""RepLKNet-31B/L/XL large-kernel backbone with PEA adapters
+(JAX counterpart: models/replknet.py; reference replknet.py:205-398 and
+replknet_adapter.py:381-644).
+
+  stem: conv3x3 s2 -> dw3x3 -> conv1x1 -> dw3x3 s2            (1/4 res)
+  4 stages of num_blocks x (RepLKBlock, ConvFFN) pairs
+  transitions: conv1x1 + dw3x3 s2 between stages
+
+Inference only: drop-path is the identity and BN runs on running stats.
+The merged (deploy) form holds one biased large-kernel conv per block
+(`lkb_reparam`, kernel A); after `RepLKNet.fold_ffn` every ConvFFN runs as
+kernel B on operands folded once.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..kernels.ffn_fused import FoldedFFN, ffn_fused, fold_ffn_params
+from .adapters import BAdapter, ChannelAdapter
+from .blocks import ConvBN, DepthwiseConv
+
+REPLK_CONFIGS = {
+    "b": dict(
+        large_kernel_sizes=(31, 29, 27, 13),
+        layers=(2, 2, 18, 2),
+        channels=(128, 256, 512, 1024),
+        small_kernel=5,
+        dw_ratio=1.0,
+    ),
+    "l": dict(
+        large_kernel_sizes=(31, 29, 27, 13),
+        layers=(2, 2, 18, 2),
+        channels=(192, 384, 768, 1536),
+        small_kernel=5,
+        dw_ratio=1.0,
+    ),
+    "xl": dict(
+        large_kernel_sizes=(27, 27, 27, 13),
+        layers=(2, 2, 18, 2),
+        channels=(256, 512, 1024, 2048),
+        small_kernel=None,
+        dw_ratio=1.5,
+    ),
+    # tiny config for tests (not in the reference)
+    "t": dict(
+        large_kernel_sizes=(7, 7, 5, 3),
+        layers=(1, 1, 2, 1),
+        channels=(16, 32, 64, 128),
+        small_kernel=3,
+        dw_ratio=1.0,
+    ),
+}
+
+
+def num_ch_enc(rep_size: str):
+    """Encoder widths per pyramid level (Config.num_ch_enc without jax)."""
+    return tuple(REPLK_CONFIGS[rep_size]["channels"])
+
+
+class ReparamLKConv(nn.Module):
+    """Training form: large dw conv+BN parallel to a small dw conv+BN,
+    summed. Merged form: one biased dw conv whose weights come from
+    `kernels.lk_conv.merge_reparam_kernels`. Reference replknet.py:79-130.
+    Both forms run their convs through kernel A."""
+
+    def __init__(self, channels: int, kernel_size: int,
+                 small_kernel: Optional[int], merged: bool = False):
+        super().__init__()
+        self.merged = merged
+        if merged:
+            self.lkb_reparam = DepthwiseConv(channels, kernel_size, bias=True,
+                                             large=True)
+            return
+        self.lkb_origin = ConvBN(channels, channels, kernel_size,
+                                 groups=channels, large=True)
+        self.small_conv = None
+        if small_kernel is not None:
+            self.small_conv = ConvBN(channels, channels, small_kernel,
+                                     groups=channels, large=True)
+
+    def forward(self, x):
+        if self.merged:
+            return self.lkb_reparam(x)
+        out = self.lkb_origin(x)
+        if self.small_conv is not None:
+            out = out + self.small_conv(x)
+        return out
+
+
+class RepLKBlock(nn.Module):
+    def __init__(self, channels: int, dw_channels: int, lk_size: int,
+                 small_kernel: Optional[int], adpt_test: int = -1,
+                 g_blk: float = 1.0, ratio: float = 0.25,
+                 merged: bool = False):
+        super().__init__()
+        self.prelkb_bn = nn.BatchNorm2d(channels, eps=1e-5)
+        self.adapter = (BAdapter(channels, adpt_test, ratio)
+                        if adpt_test >= 0 else None)
+        self.pw1 = ConvBN(channels, dw_channels, 1, relu=True)
+        self.large_kernel = ReparamLKConv(dw_channels, lk_size, small_kernel,
+                                          merged)
+        self.pw2 = ConvBN(dw_channels, channels, 1)
+        self.g_blk = g_blk
+
+    def forward(self, x):
+        out = self.prelkb_bn(x)
+        adpt = self.adapter(out) if self.adapter is not None else None
+        out = self.pw2(F.relu(self.large_kernel(self.pw1(out))))
+        res = x + out
+        if adpt is not None:
+            res = res + self.g_blk * adpt
+        return res
+
+
+_FOLDED = FoldedFFN._fields
+
+
+class ConvFFN(nn.Module):
+    """preffn_bn -> 1x1 -> erf-GELU -> 1x1, residual, plus
+    `g_ffn * ChannelAdapter(preffn_bn(x))` (replknet_adapter.py:264-289).
+
+    `fold()` stores the BN-folded kernel-B operands as non-persistent
+    buffers (state_dict keeps the reference's names); from then on the
+    block runs as `kernels.ffn_fused.ffn_fused`."""
+
+    def __init__(self, channels: int, internal_channels: int,
+                 adpt_test: int = -1, g_ffn: float = 1.0):
+        super().__init__()
+        self.preffn_bn = nn.BatchNorm2d(channels, eps=1e-5)
+        self.mlp_adapter = None
+        if adpt_test >= 0:
+            # ConvFFN hardcodes its adapter ratio (0.5 only for adpt_test
+            # 2), replknet_adapter.py:273-276
+            self.mlp_adapter = ChannelAdapter(
+                channels, 0.5 if adpt_test == 2 else 0.25)
+        self.pw1 = ConvBN(channels, internal_channels, 1)
+        self.pw2 = ConvBN(internal_channels, channels, 1)
+        self.g_ffn = g_ffn
+        for name in _FOLDED:
+            self.register_buffer("folded_" + name, None, persistent=False)
+
+    @torch.no_grad()
+    def fold(self, dtype: torch.dtype) -> None:
+        p = fold_ffn_params(self.state_dict(), self.g_ffn, dtype=dtype)
+        for name, t in p._asdict().items():
+            setattr(self, "folded_" + name, t)
+
+    def forward(self, x):
+        if self.folded_w1 is not None:
+            return ffn_fused(x, FoldedFFN(
+                *(getattr(self, "folded_" + n) for n in _FOLDED)))
+        out = self.preffn_bn(x)
+        adpt = self.mlp_adapter(out) if self.mlp_adapter is not None else None
+        out = self.pw2(F.gelu(self.pw1(out)))
+        res = x + out
+        if adpt is not None:
+            res = res + self.g_ffn * adpt
+        return res
+
+
+def _route_adpt(adpt_test: int):
+    """adpt_test 5/6 routing (replknet_adapter.py:341-347):
+    returns (replk_block_adpt, convffn_adpt)."""
+    if adpt_test == 5:
+        return -1, 1
+    if adpt_test == 6:
+        return 4, -1
+    return adpt_test, adpt_test
+
+
+class RepLKNetStage(nn.Module):
+    def __init__(self, channels: int, num_blocks: int, lk_size: int,
+                 small_kernel: Optional[int], dw_ratio: float = 1.0,
+                 ffn_ratio: float = 4.0, adpt_test: int = -1,
+                 g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
+                 merged: bool = False):
+        super().__init__()
+        adpt_r, adpt_c = _route_adpt(adpt_test)
+        blocks = []
+        for _ in range(num_blocks):
+            blocks.append(RepLKBlock(
+                channels, int(channels * dw_ratio), lk_size, small_kernel,
+                adpt_test=adpt_r, g_blk=g_blk, ratio=ratio, merged=merged))
+            blocks.append(ConvFFN(channels, int(channels * ffn_ratio),
+                                  adpt_test=adpt_c, g_ffn=g_ffn))
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+
+def _transition(in_ch: int, out_ch: int) -> nn.Sequential:
+    """1x1 conv-bn-relu to the next width + dw 3x3 s2 conv-bn-relu
+    (replknet.py:250-254)."""
+    return nn.Sequential(
+        ConvBN(in_ch, out_ch, 1, relu=True),
+        ConvBN(out_ch, out_ch, 3, stride=2, groups=out_ch, relu=True),
+    )
+
+
+class RepLKNet(nn.Module):
+    """Feature-pyramid RepLKNet (out_indices mode; the reference's
+    classification head is never used by PPEA-Depth)."""
+
+    def __init__(self, rep_size: str = "b", ffn_ratio: float = 4.0,
+                 in_channels: int = 3, adpt_test: int = -1,
+                 g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
+                 trans_adpt: bool = False, input_adpt: bool = False,
+                 merged: bool = False):
+        super().__init__()
+        if trans_adpt or input_adpt:
+            raise NotImplementedError(
+                "transition/input adapters (--mono_trans/--mono_input) are "
+                "not ported yet")
+        cfg = REPLK_CONFIGS[rep_size]
+        channels = cfg["channels"]
+        base = channels[0]
+        self.stem = nn.ModuleList([
+            ConvBN(in_channels, base, 3, stride=2, relu=True),
+            ConvBN(base, base, 3, groups=base, relu=True),
+            ConvBN(base, base, 1, relu=True),
+            ConvBN(base, base, 3, stride=2, groups=base, relu=True),
+        ])
+        self.stages = nn.ModuleList([
+            RepLKNetStage(
+                channels[i], cfg["layers"][i], cfg["large_kernel_sizes"][i],
+                cfg["small_kernel"], dw_ratio=cfg["dw_ratio"],
+                ffn_ratio=ffn_ratio, adpt_test=adpt_test, g_blk=g_blk,
+                g_ffn=g_ffn, ratio=ratio, merged=merged)
+            for i in range(4)
+        ])
+        self.transitions = nn.ModuleList([
+            _transition(channels[i], channels[i + 1]) for i in range(3)
+        ])
+
+    def fold_ffn(self, dtype: torch.dtype) -> None:
+        """Fold every ConvFFN into kernel-B operands of `dtype`."""
+        for m in self.modules():
+            if isinstance(m, ConvFFN):
+                m.fold(dtype)
+
+    def forward(self, x):
+        """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32]."""
+        x = x.to(self.stem[0].conv.weight.dtype)
+        for layer in self.stem:
+            x = layer(x)
+        feats = []
+        for i in range(4):
+            x = self.stages[i](x)
+            feats.append(x)
+            if i < 3:
+                x = self.transitions[i](x)
+        return feats

@@ -35,3 +35,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one "
+        "(run on a card: pytest -m gpu tests/test_torch_gpu_kernels.py)")

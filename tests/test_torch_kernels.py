@@ -1,0 +1,196 @@
+"""Port kernels on the CPU: the plain versions of kernel A (large-kernel
+depthwise conv) and kernel B (fused deploy ConvFFN) against the JAX
+functions they replace, the port's FFN folding against JAX's, and the
+wrappers' routing and input checks. The CUDA kernels themselves are held
+against these plain versions on the card (tests/test_torch_gpu_kernels.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ppeadepth_tpu.kernels import banded_conv, ffn_mxu, lk_conv
+from ppeadepth_tpu.models.replknet import ConvFFN as JConvFFN
+from ppeadepth_tpu_torch import kernels
+from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
+from ppeadepth_tpu_torch.kernels.ffn_fused import (
+    FoldedFFN, ffn_fused, ffn_fused_plain, fold_ffn_params, hidden_splits)
+from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
+from tests.torch_parity import nhwc_to_torch, perturb, torch_to_nhwc
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("k", [5, 7, 13])
+def test_lk_plain_matches_jax(k, B, bias):
+    """Kernel A's plain version == lax depthwise == the banded Pallas
+    kernel (interpret mode, f32 build_T_t tables); atol 1e-5 as
+    tests/test_banded_conv.py:33 (f32 summation order only)."""
+    rng = np.random.RandomState(k * 10 + B)
+    H, W, C = 6, 16, 12
+    x = (rng.rand(B, H, W, C) - 0.5).astype(np.float32)
+    w = (rng.randn(k, k, 1, C) * 0.1).astype(np.float32)
+    b = (rng.randn(C) * 0.1).astype(np.float32)
+    ref_lax = np.asarray(lk_conv._depthwise_lax(
+        jnp.asarray(x), jnp.asarray(w), 1, k // 2))
+    ref_banded = np.asarray(banded_conv.banded_depthwise(
+        jnp.asarray(x), banded_conv.build_T_t(jnp.asarray(w), W), k,
+        interpret=True))
+    if bias:
+        ref_lax, ref_banded = ref_lax + b, ref_banded + b
+    n0 = kernels.launch_counts["lk_dwconv"]
+    y = lk_depthwise(nhwc_to_torch(x),
+                     torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+                     torch.from_numpy(b) if bias else None)
+    assert kernels.launch_counts["lk_dwconv"] == n0  # CPU: plain, no launch
+    got = torch_to_nhwc(y)
+    np.testing.assert_allclose(got, ref_lax, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, ref_banded, rtol=0, atol=1e-5)
+
+
+C, H4, B, H, W = 16, 64, 2, 8, 24
+
+
+def _jax_ffn(adpt_test, dtype, seed=0):
+    """Perturbed JAX ConvFFN(merged=True) variables, an input, and the
+    lax-path output."""
+    rng = np.random.RandomState(seed)
+    model = JConvFFN(C, H4, 0.0, adpt_test=adpt_test, g_ffn=0.7,
+                     merged=True, ffn_backend="lax", dtype=dtype)
+    x = rng.rand(B, H, W, C).astype(np.float32)
+    variables = model.init({"params": jax.random.PRNGKey(0),
+                            "droppath": jax.random.PRNGKey(1)}, x)
+    variables = {k: perturb(jax.device_get(v), rng)
+                 for k, v in variables.items()}
+    y = np.asarray(model.apply(variables, jnp.asarray(x), False), np.float64)
+    return variables, x, y
+
+
+@pytest.mark.parametrize("adpt_test", [4, -1])
+def test_ffn_plain_matches_lax_f32(adpt_test):
+    """Kernel B's plain version on f32-folded operands == the JAX lax
+    ConvFFN in f32 (erf-GELU on both sides): rel 1e-5 of the peak, the
+    folding's f32 reassociation."""
+    variables, x, ref = _jax_ffn(adpt_test, None)
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    p = fold_ffn_params(sd, g_ffn=0.7, dtype=torch.float32)
+    assert (p.a1 is None) == (adpt_test < 0)
+    got = torch_to_nhwc(ffn_fused(nhwc_to_torch(x), p)).astype(np.float64)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("adpt_test", [4, -1])
+def test_ffn_plain_matches_pallas_bf16(adpt_test):
+    """Kernel B's plain version in bf16 vs the JAX Pallas kernel
+    (interpret mode) on the same folded bf16 operands, at the JAX kernel
+    test's bounds (tests/test_ffn_mxu.py:63-67): bf16 rounding of x, the
+    weights and the hidden, plus tanh- (JAX) vs erf-GELU (port)."""
+    variables, x, _ = _jax_ffn(adpt_test, jnp.bfloat16, seed=1)
+    folded = ffn_mxu.fold_ffn_params(
+        variables["params"], variables["batch_stats"], g_ffn=0.7)
+    ref = np.asarray(ffn_mxu.ffn_block_apply(
+        jnp.asarray(x, jnp.bfloat16), folded, interpret=True), np.float64)
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    p = fold_ffn_params(sd, g_ffn=0.7, dtype=torch.bfloat16)
+    got = torch_to_nhwc(ffn_fused(nhwc_to_torch(x).bfloat16(), p))
+    diff = np.abs(got.astype(np.float64) - ref)
+    scale = np.abs(ref).max()
+    assert diff.max() / scale < 2.5e-2
+    assert diff.mean() / scale < 3e-3
+
+
+@pytest.mark.parametrize("adpt_test", [4, -1])
+def test_fold_ffn_params_matches_jax(adpt_test):
+    """Port folding == ffn_mxu.fold_ffn_params: f32 biases to 1e-5, bf16
+    weights to 2 bf16 ulps (the f32 products round to bf16 after math
+    reassociated between the two)."""
+    variables, _, _ = _jax_ffn(adpt_test, jnp.bfloat16, seed=2)
+    ref = ffn_mxu.fold_ffn_params(
+        variables["params"], variables["batch_stats"], g_ffn=0.7)
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
+    got = fold_ffn_params(sd, g_ffn=0.7, dtype=torch.bfloat16)
+    names = FoldedFFN._fields if adpt_test >= 0 else FoldedFFN._fields[:4]
+    for name, r in zip(names, ref):
+        g = getattr(got, name)
+        r = np.asarray(r, np.float32).reshape(g.shape)
+        if name.startswith(("b", "ab")):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), r, rtol=1e-5, atol=1e-6)
+        else:
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_allclose(g.float().numpy(), r, rtol=8e-3,
+                                       atol=1e-6)
+    if adpt_test < 0:
+        assert all(getattr(got, n) is None for n in FoldedFFN._fields[4:])
+
+
+@pytest.mark.parametrize("M,H4", [
+    (61440, 512), (15360, 1024), (3840, 2048), (960, 4096), (100, 1024),
+    (1, 64), (960, 16)])
+def test_hidden_splits_cover_every_chunk(M, H4):
+    """Kernel B's hidden split: every 64-wide chunk in exactly one split,
+    no split empty, one split where M alone fills a 132-SM card."""
+    splits, per = hidden_splits(M, H4, 132)
+    chunks = -(-H4 // 64)
+    assert (splits - 1) * per < chunks <= splits * per
+    if -(-M // 32) >= 2 * 132:
+        assert splits == 1
+
+
+def _ffn_operands(dtype=torch.float32, c=16, adapter=True):
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g).to(dt)
+
+    f32 = torch.float32
+    ada = (r(c, 4), r(4, dt=f32), r(4, c), r(c, dt=f32)) if adapter else ()
+    return FoldedFFN(r(c, 4 * c), r(4 * c, dt=f32), r(4 * c, c), r(c, dt=f32),
+                     *ada)
+
+
+def test_wrappers_route_cpu_to_plain():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 6, 5, 16, generator=g).permute(0, 3, 1, 2)
+    w = torch.randn(16, 1, 5, 5, generator=g)
+    before = dict(kernels.launch_counts)
+    torch.testing.assert_close(lk_depthwise(x, w), depthwise_plain(x, w),
+                               rtol=0, atol=0)
+    p = _ffn_operands()
+    y = ffn_fused(x, p)
+    ref = ffn_fused_plain(x.permute(0, 2, 3, 1).reshape(-1, 16), p)
+    torch.testing.assert_close(y.permute(0, 2, 3, 1).reshape(-1, 16), ref,
+                               rtol=0, atol=0)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert kernels.launch_counts == before
+
+
+def _x(dtype=torch.float32, layout="cl"):
+    x = torch.zeros(2, 16, 6, 5, dtype=dtype)
+    return x.contiguous(memory_format=torch.channels_last) if layout == "cl" else x
+
+
+_W = torch.zeros(16, 1, 5, 5)
+
+
+@pytest.mark.parametrize("call,exc", [
+    (lambda: lk_depthwise(_x(torch.float64), _W.double()), TypeError),
+    (lambda: lk_depthwise(_x(torch.bfloat16), _W), TypeError),
+    (lambda: lk_depthwise(_x(), torch.zeros(16, 1, 4, 4)), ValueError),
+    (lambda: lk_depthwise(_x(), torch.zeros(16, 1, 33, 33)), ValueError),
+    (lambda: lk_depthwise(_x(), torch.zeros(8, 1, 5, 5)), ValueError),
+    (lambda: lk_depthwise(_x(), _W, torch.zeros(8)), ValueError),
+    (lambda: lk_depthwise(_x(layout="nchw"), _W), ValueError),
+    (lambda: ffn_fused(_x(torch.float64), _ffn_operands()), TypeError),
+    (lambda: ffn_fused(_x(torch.bfloat16), _ffn_operands()), TypeError),
+    (lambda: ffn_fused(_x(), _ffn_operands(c=32)), ValueError),
+    (lambda: ffn_fused(_x(), _ffn_operands()._replace(b1=torch.zeros(64).bfloat16())),
+     TypeError),
+    (lambda: ffn_fused(_x(), _ffn_operands()._replace(a2=None)), ValueError),
+    (lambda: ffn_fused(_x(layout="nchw"), _ffn_operands()), ValueError),
+])
+def test_wrappers_reject_bad_inputs(call, exc):
+    with pytest.raises(exc):
+        call()

@@ -1,0 +1,122 @@
+"""Port serving path: `InferenceSession.predict_depth` against the JAX
+deploy forward (the body of ppeadepth_tpu/serve.py:109-126) on the same
+merged weights, the port's freedom from jax, and chip_smoke.py refusing to
+run without a card."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ppeadepth_tpu.ckpt.deploy import structural_reparam as jax_reparam
+from ppeadepth_tpu.core.geometry import disp_to_depth
+from ppeadepth_tpu.models import RepDepth as JRepDepth
+from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
+from ppeadepth_tpu_torch.serve import InferenceSession
+from tests.torch_parity import TINY, jax_teacher
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _disp(depth):
+    lo, hi = 1.0 / TINY.max_depth, 1.0 / TINY.min_depth
+    return (1.0 / depth - lo) / (hi - lo)
+
+
+def test_predict_depth_matches_jax():
+    """f32, B=2, 64x96, float and uint8 input. Compared as disparity
+    (depth = 1/scaled disparity magnifies errors near max_depth): atol
+    2e-4 as the module parity tests."""
+    params, stats = jax_teacher()
+    mp, ms = jax_reparam(params, stats)
+    model = JRepDepth(TINY.replace(merged=True))
+
+    @jax.jit
+    def jax_predict(img):
+        out = model.apply({"params": mp, "batch_stats": ms}, img, False,
+                          method=JRepDepth.forward_mono)
+        return disp_to_depth(out[("disp", 0)][..., 0], TINY.min_depth,
+                             TINY.max_depth)[1]
+
+    sd = state_dict_from_jax(params, stats)
+    sess = InferenceSession(TINY, sd, device="cpu", dtype="float32")
+    rng = np.random.RandomState(5)
+    imgs = rng.rand(2, TINY.height, TINY.width, 3).astype(np.float32)
+    u8 = (imgs * 255).astype(np.uint8)
+    for inp, ref_in in ((imgs, imgs), (u8, u8.astype(np.float32) / 255.0)):
+        depth = sess.predict_depth(inp)
+        ref = np.asarray(jax_predict(jnp.asarray(ref_in)))
+        assert depth.shape == (2, TINY.height, TINY.width)
+        assert depth.dtype == np.float32
+        assert np.isfinite(depth).all()
+        np.testing.assert_allclose(_disp(depth), _disp(ref), rtol=0,
+                                   atol=2e-4)
+    # the training form (no reparam, ConvFFNs unfolded) serves the same
+    unmerged = InferenceSession(TINY, sd, device="cpu", dtype="float32",
+                                merge_reparam=False)
+    np.testing.assert_allclose(_disp(unmerged.predict_depth(imgs)),
+                               _disp(sess.predict_depth(imgs)), rtol=0,
+                               atol=2e-4)
+
+
+def test_session_bfloat16_cpu_close_to_float32():
+    """The bf16 deploy form (plain versions on the CPU) tracks the f32 one
+    on the tiny teacher: mean |d disp| 5e-3, the bound chip_smoke.py holds
+    the card to."""
+    g = torch.Generator().manual_seed(0)
+    imgs = np.random.RandomState(6).rand(2, TINY.height, TINY.width, 3)
+    d32 = InferenceSession(TINY, device="cpu", dtype="float32",
+                           generator=g).predict_depth(imgs)
+    g = torch.Generator().manual_seed(0)
+    sess = InferenceSession(TINY, device="cpu", dtype="bfloat16", generator=g)
+    d16 = sess.predict_depth(imgs)
+    ffn = sess.model.mono_encoder.stages[0].blocks[1]
+    assert ffn.folded_w1.dtype == torch.bfloat16
+    assert ffn.folded_b1.dtype == torch.float32
+    assert sess.model.mono_depth.disp_convs[0].conv.weight.dtype == torch.float32
+    assert np.abs(_disp(d16) - _disp(d32)).mean() < 5e-3
+
+
+_NO_JAX = """
+import sys
+from types import SimpleNamespace
+import numpy as np
+from ppeadepth_tpu_torch.serve import InferenceSession
+opt = SimpleNamespace(adapter=True, rep_size="t", adpt_test=4, ratio=0.25,
+                      g_blk=1.0, g_ffn=1.0, mono_trans=False,
+                      mono_input=False, dc=False, height=64, width=96,
+                      min_depth=0.1, max_depth=100.0)
+d = InferenceSession(opt, device="cpu", dtype="float32").predict_depth(
+    np.zeros((1, 64, 96, 3), np.float32))
+assert d.shape == (1, 64, 96)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ppeadepth_tpu"))
+print("IMPORTED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter serving on the CPU loads nothing of jax, flax or
+    the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED []" in proc.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """On a host without a card chip_smoke.py exits non-zero and prints no
+    result line; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "is_available() is False" in proc.stderr
