@@ -1,15 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the checks below
+    python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
+                                       # each serving path's device time
 
-Drives the port's teacher serving path (`ppeadepth_tpu_torch.serve.
-InferenceSession.predict_depth`: RepLKNet-31B + PEA adapters, adpt_test=4,
-640x192, bf16, merged deploy form, B=8) on seeded random weights, after
-building the hand-written kernels from `ppeadepth_tpu_torch/csrc/` and
-holding each against its plain PyTorch version at every shape the path
-gives it. Any failed phase raises, so the exit code is non-zero; without a
-CUDA device it stops before doing anything.
+Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
+InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
+adapters, adpt_test=4, 640x192, bf16, merged deploy form, B=8, 96 depth
+bins, ResNet-18 pose net) on seeded random weights, after building the
+hand-written kernels from `ppeadepth_tpu_torch/csrc/` and holding each
+against its plain PyTorch version at the shapes the paths give it:
+
+  * teacher `predict_depth`, 3 requests, against the CPU f32 forward;
+  * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
+  * `predict_pose`, 3 pairs, against the CPU f32 result.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. Any failed phase raises, so the exit code is non-zero;
+without a CUDA device it stops before doing anything.
 
 Output, in order: versions and the card's name and power limit; the kernel
 build; per-shape kernel errors and times; the serving checks and times; one
@@ -31,16 +40,28 @@ REQUESTS = 3
 A_REL_TOL = 1e-2        # kernel A: max|d| <= 1e-2 * max|ref| (bf16 output)
 B_MAX_REL_TOL = 2.5e-2  # kernel B: tests/test_ffn_mxu.py:63-67 bounds
 B_MEAN_REL_TOL = 3e-3
+C_REL_TOL = 5e-5        # kernel C: the JAX mxu_f32 check's bound ...
+C_BEYOND = 1e-5         # ... with at most this share of entries beyond it,
+C_NEAR_PX = 1e-4        # each within this many px of an edge-mask boundary
 DISP_MEAN_TOL = 5e-3    # bf16 card forward vs CPU f32 forward, |d disp|
 DISP_MAX_TOL = 5e-2
+POSE_TOL = 1e-4         # f32 card pose vs CPU f32 pose, max |d|
+DEPTH_BINS = (0.1, 10.0)  # the JAX session's default min/max depth bin
 
-# The shipped teacher config (ckpt/models/opt.json: --adapter --rep_size b,
+# H100 SXM data-sheet peaks (dense, 700 W): the bound of each kernel is
+# max(bytes / memory rate, operations / peak rate of their type)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12      # CUDA cores, float32
+BF16_FLOP_PER_S = 989e12    # tensor cores, bf16
+
+# The shipped config (ckpt/models/opt.json: --adapter --rep_size b,
 # adpt_test 4) at KITTI 640x192, under `ppeadepth_tpu.options.Config`'s
 # field names and defaults. Spelled out so this script imports nothing of
 # the JAX package.
-TEACHER_B = SimpleNamespace(
+SHIPPED_B = SimpleNamespace(
     adapter=True, rep_size="b", adpt_test=4, ratio=0.25, g_blk=1.0,
-    g_ffn=1.0, mono_trans=False, mono_input=False, dc=False,
+    g_ffn=1.0, trans=False, input=False, mono_trans=False, mono_input=False,
+    dc=False, dyn_cv=False, num_depth_bins=96, depth_binning="log",
     height=192, width=640, min_depth=0.1, max_depth=100.0)
 
 
@@ -66,6 +87,28 @@ def _time_pair(plain, kernel, iters):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def _bound_ms(nbytes, flop, peak):
+    """(least time in ms, what bounds it) for moving `nbytes` once and
+    doing `flop` operations at `peak` operations/s."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flop / peak
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+class _Bound:
+    """Sum of per-call bounds over a forward, and what bounds most of it."""
+
+    def __init__(self):
+        self.ms, self.by_ms = 0.0, {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, ms, by, calls):
+        self.ms += ms * calls
+        self.by_ms[by] += ms * calls
+
+    @property
+    def by(self):
+        return max(self.by_ms, key=self.by_ms.get)
+
+
 def _stage_shapes():
     """(C, H, W, k, blocks) of the four encoder stages at 640x192."""
     from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
@@ -87,12 +130,14 @@ def _dw_macs(B, H, W, C, k):
 
 
 def check_lk_dwconv(dev, rng):
-    """Kernel A against its plain version at the four stage shapes."""
+    """Kernel A against its plain version (one cuDNN call, which is also
+    the library yardstick) at the four stage shapes. Times and bounds are
+    per teacher forward (the sum over its 24 calls)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
 
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, _Bound()
     for C, H, W, k, blocks in _stage_shapes():
         x = torch.from_numpy(rng.randn(BATCH, H, W, C).astype("float32")).to(
             dev).bfloat16().permute(0, 3, 1, 2)
@@ -113,17 +158,23 @@ def check_lk_dwconv(dev, rng):
         p, kk = _time_pair(lambda: depthwise_plain(x, w, b),
                            lambda: lk_depthwise(x, w, b), 20)
         macs = _dw_macs(BATCH, H, W, C, k)
+        bnd, by = _bound_ms(2 * (2 * BATCH * H * W * C + C * k * k + C),
+                            2 * macs, F32_FLOP_PER_S)
         print(f"kernel A  [{BATCH},{H},{W},{C}] k={k}: {kk:.4f} ms/call "
               f"({macs / kk / 1e9:.2f} T multiply-adds/s of {macs / 1e9:.2f} G), "
-              f"plain (cuDNN bf16) {p:.4f} ms/call, x{blocks} per forward")
+              f"plain (cuDNN bf16) {p:.4f} ms/call, bound {bnd:.4f} ms "
+              f"({by}), x{blocks} per forward")
         ms += kk * blocks
         plain_ms += p * blocks
-    return worst, ms, plain_ms
+        bound.add(bnd, by, blocks)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound.ms,
+                bound_by=bound.by, library_ms=plain_ms)
 
 
 def check_ffn_fused(dev, rng):
     """Kernel B against its plain version at the four stage shapes, with
-    the adapter (the main path) and without it."""
+    the adapter (the main path) and without it. Times and bounds are per
+    teacher forward (the sum over its 24 calls, with the adapter)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.ffn_fused import (
@@ -133,7 +184,7 @@ def check_ffn_fused(dev, rng):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype("float32")).to(dev).to(dtype)
 
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, _Bound()
     cases = [(C, H, W, blocks, True) for C, H, W, _, blocks in _stage_shapes()]
     cases += [c[:4] + (False,) for c in cases]
     for C, H, W, blocks, adapter in cases:
@@ -162,28 +213,135 @@ def check_ffn_fused(dev, rng):
         worst = max(worst, mx)
         pl, kk = _time_pair(lambda: ffn_fused_plain(x2d, p),
                             lambda: ffn_fused(x, p), 20)
-        flop = 2 * M * C * (2 * H4 + (2 * CA if adapter else 0))
+        ca = CA if adapter else 0
+        flop = 2 * M * C * (2 * H4 + 2 * ca)
+        nbytes = (2 * 2 * M * C + 2 * 2 * C * (H4 + ca)
+                  + 4 * (H4 + C + (ca + C if adapter else 0)))
+        bnd, by = _bound_ms(nbytes, flop, BF16_FLOP_PER_S)
         print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.1f} TFLOP/s), "
-              f"plain (cuBLAS bf16) {pl:.4f} ms/call, x{blocks} per forward")
+              f"plain (cuBLAS bf16) {pl:.4f} ms/call, bound {bnd:.4f} ms "
+              f"({by}), x{blocks} per forward")
         if adapter:
             ms += kk * blocks
             plain_ms += pl * blocks
-    return worst, ms, plain_ms
+            bound.add(bnd, by, blocks)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound.ms,
+                bound_by=bound.by, library_ms=None)
+
+
+def _kitti_K(height, width, batch):
+    """KITTI intrinsics scaled to height x width, and their pinv, as
+    [batch, 4, 4] float32 numpy (the JAX trainer's `synthetic_batch`)."""
+    import numpy as np
+
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0], K[1, 1] = 0.58 * width, 1.92 * height
+    K[0, 2], K[1, 2] = 0.5 * width, 0.5 * height
+    K = np.repeat(K[None], batch, 0)
+    return K, np.linalg.pinv(K).astype(np.float32)
+
+
+def _pose_4x4(rng, batch):
+    """[batch, 4, 4] non-degenerate poses: small rotation and an x+y+z
+    translation, so no sample sits on the 2-px edge-mask boundary."""
+    import numpy as np
+
+    T = np.repeat(np.eye(4, dtype=np.float32)[None], batch, 0)
+    for b in range(batch):
+        th = rng.randn(3) * 0.01
+        c, s = np.cos(th), np.sin(th)
+        T[b, :3, :3] = (np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+                        @ np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+                        @ np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]]))
+        T[b, :3, 3] = rng.randn(3) * [0.03, 0.01, 0.05] + [0.05, 0.01, 0.1]
+    return T
+
+
+def check_plane_sweep(dev, rng):
+    """Kernel C against its plain version at the student's main-path shape
+    (B=8, 48x160, C=128, 96 log bins 0.1-10, 1/4-scale KITTI intrinsics, a
+    non-degenerate pose), with f32 and with bf16 features (the main path's
+    dtype, timed)."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
+    from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
+
+    C, H, W, _, _ = _stage_shapes()[0]
+    D = SHIPPED_B.num_depth_bins
+    K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(H, W, BATCH))
+    T = torch.from_numpy(_pose_4x4(rng, BATCH)).to(dev)
+    P = (K @ T)[:, :3]
+    A = (P[:, :, :3] @ invK[:, :3, :3]).contiguous()
+    t = P[:, :, 3].contiguous()
+    bins = compute_depth_bins(*DEPTH_BINS, D, device=dev)
+    x, y = project(A, t, bins, H, W)
+    edge = (x >= 2) & (x <= W - 2) & (y >= 2) & (y <= H - 2)
+    near = torch.minimum(torch.minimum((x - 2).abs(), (x - (W - 2)).abs()),
+                         torch.minimum((y - 2).abs(), (y - (H - 2)).abs())
+                         ) < C_NEAR_PX
+    gy, gx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    border = ((gy >= 2) & (gy < H - 2) & (gx >= 2) & (gx < W - 2)).reshape(-1)
+    samples = (edge & border).sum().item()
+    near = near.reshape(BATCH, D, H, W)
+
+    worst, out = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def feats():
+            return torch.from_numpy(rng.randn(BATCH, H, W, C).astype("float32")
+                                    ).to(dev).to(dtype).permute(0, 3, 1, 2)
+
+        cur, lk = feats(), feats()
+        got = plane_sweep(cur, lk, A, t, bins)
+        torch.cuda.synchronize()
+        ref = plane_sweep_plain(cur, lk, A, t, bins)
+        diff = (got - ref).abs()
+        peak = ref.abs().max().item()
+        beyond = diff > C_REL_TOL * peak
+        n_beyond = beyond.sum().item()
+        n_off = (beyond & ~near).sum().item()
+        tag = f"kernel C  [{BATCH},{H},{W},{C}] D={D} {str(dtype)[6:]}"
+        print(f"{tag}: max|d|={diff.max().item():.3e} max|ref|={peak:.3e}; "
+              f"{n_beyond} of {diff.numel()} entries beyond {C_REL_TOL:g} x "
+              f"max|ref| ({n_off} of them off a mask boundary); observed "
+              f"samples {samples} of {BATCH * D * H * W}; tol: at most "
+              f"{C_BEYOND:g} of the entries beyond, each within {C_NEAR_PX:g} px "
+              f"of a mask boundary")
+        if n_off or n_beyond > C_BEYOND * diff.numel():
+            raise AssertionError(f"kernel C disagrees ({dtype}): {n_beyond} "
+                                 f"beyond, {n_off} off a boundary")
+        if not (ref > 0).float().mean().item() > 0.1:
+            raise AssertionError("kernel C check observed too few samples")
+        worst = max(worst, diff.max().item())
+        pl, kk = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
+                            lambda: plane_sweep(cur, lk, A, t, bins), 5)
+        # per observed sample: 12 f32 operations a channel (bilinear 9, sub,
+        # abs, sum); per (item, bin, pixel): ~12 for the projection
+        flop = 12 * C * samples + 12 * BATCH * D * H * W
+        nbytes = 2 * BATCH * H * W * C * cur.element_size() + 4 * BATCH * D * H * W
+        bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
+        print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.2f} TFLOP/s of "
+              f"{flop / 1e9:.2f} GFLOP), plain (torch gather) {pl:.4f} ms/call, "
+              f"bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+        out = dict(ms=kk, plain_ms=pl, bound_ms=bnd, bound_by=by)
+    return dict(max_abs_err=worst, library_ms=None, **out)
 
 
 def _random_state_dict(opt):
-    """Seeded random teacher weights in training form.
+    """Seeded random weights of the whole RepDepth in training form.
 
     Conv/linear weights come from `init_weights`; adapter `D_fc2` weights
     are drawn from a numpy seed (not zero) so the adapter branches count.
-    BN running statistics are then calibrated by one train-mode forward of
-    seeded random images, as a trained network's statistics match its own
-    activations: with arbitrary statistics each eval-mode residual block
-    scales its input, and the 36 blocks of RepLKNet-31B grow activations
-    ~1000x, where bf16 and f32 then disagree for reasons that are not the
-    kernels'. For the same reason the last BN scale of every residual
-    branch (`pw2.bn.weight`) is drawn small, as in trained residual nets
-    whose branches add small updates to the trunk; with unit scales the
+    BN running statistics are then calibrated by one train-mode pass of
+    seeded random images through each network's own forward (teacher,
+    student with a fixed pose, pose net), as a trained network's statistics
+    match its own activations: with arbitrary statistics each eval-mode
+    residual block scales its input, and the 36 blocks of RepLKNet-31B grow
+    activations ~1000x, where bf16 and f32 then disagree for reasons that
+    are not the kernels'. For the same reason the last BN scale of every
+    residual branch (`pw2.bn.weight`) is drawn small, as in trained residual
+    nets whose branches add small updates to the trunk; with unit scales the
     random 36-block net amplifies bf16 rounding chaotically. Finally the
     statistics are perturbed from the numpy seed, so the BN folding is
     exercised with non-trivial values."""
@@ -211,9 +369,17 @@ def _random_state_dict(opt):
             m.reset_running_stats()
             m.momentum = None  # one pass: running stats = batch stats
         calib = torch.from_numpy(
-            rng.rand(2, 3, opt.height, opt.width).astype("float32"))
+            rng.rand(2, 3, opt.height, opt.width).astype("float32")
+        ).contiguous(memory_format=torch.channels_last)
+        lookup = torch.roll(calib, (2, 5), (2, 3))
+        K, invK = (torch.from_numpy(a) for a in
+                   _kitti_K(opt.height // 4, opt.width // 4, 2))
         model.train()
-        model.forward_mono(calib.contiguous(memory_format=torch.channels_last))
+        model.forward_mono(calib)
+        model.pose_pair(lookup, calib, invert=True)
+        model.forward_multi(calib, lookup[:, None],
+                            torch.from_numpy(_pose_4x4(rng, 2))[:, None],
+                            K, invK, *DEPTH_BINS)
         model.eval()
         for m in bns:
             m.momentum = 0.1
@@ -224,75 +390,208 @@ def _random_state_dict(opt):
     return model.state_dict()
 
 
-def serve(opt):
-    """Answer REQUESTS batches on the card through the kernels; check the
-    outputs, the launch counts and agreement with the CPU f32 forward."""
+def _check_depths(depths, opt, tag):
     import numpy as np
-    import torch
 
-    from ppeadepth_tpu_torch import kernels
-    from ppeadepth_tpu_torch.serve import InferenceSession
-
-    sd = _random_state_dict(opt)
-    t0 = time.perf_counter()
-    sess = InferenceSession(opt, sd, device="cuda", dtype="bfloat16")
-    print(f"serve: session built in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.RandomState(SEED + 1)
-    requests = [rng.rand(BATCH, opt.height, opt.width, 3).astype("float32")
-                for _ in range(REQUESTS)]
-    blocks = sum(s[4] for s in _stage_shapes())
-
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    depths = [sess.predict_depth(img) for img in requests]
-    counts = dict(kernels.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"serve: {REQUESTS} requests of B={BATCH}, launches {counts}")
-    for name in ("lk_dwconv", "ffn_fused"):
-        if counts[name] != blocks * REQUESTS:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected "
-                                 f"{blocks} per request")
     for d in depths:
         if d.shape != (BATCH, opt.height, opt.width):
-            raise AssertionError(f"depth shape {d.shape}")
+            raise AssertionError(f"{tag}: depth shape {d.shape}")
         if not np.isfinite(d).all():
-            raise AssertionError("non-finite depth")
+            raise AssertionError(f"{tag}: non-finite depth")
         if d.min() < opt.min_depth * (1 - 1e-3) or d.max() > opt.max_depth * (1 + 1e-3):
-            raise AssertionError(f"depth outside [{opt.min_depth}, "
+            raise AssertionError(f"{tag}: depth outside [{opt.min_depth}, "
                                  f"{opt.max_depth}]: {d.min()} .. {d.max()}")
-    print(f"serve: depth shape {depths[0].shape}, finite, in "
+    print(f"{tag}: depth shape {depths[0].shape}, finite, in "
           f"[{min(d.min() for d in depths):.4f}, "
           f"{max(d.max() for d in depths):.4f}]")
 
-    # one image against the port's own CPU float32 forward (plain versions)
-    cpu = InferenceSession(opt, sd, device="cpu", dtype="float32")
-    t0 = time.perf_counter()
-    ref = cpu.predict_depth(requests[0][:1])
-    print(f"serve: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
 
-    def disp(depth):
+def _check_counts(counts, expected, tag):
+    print(f"{tag}: launches {counts}")
+    for name, n in expected.items():
+        if counts[name] != n:
+            raise AssertionError(f"{tag}: {counts[name]} {name} launches, "
+                                 f"expected {n}")
+
+
+def _compare_disp(depth, ref, opt, tag):
+    """|d disparity| of the card's bf16 answer against the CPU f32 one."""
+    import numpy as np
+
+    def disp(d):
         lo, hi = 1.0 / opt.max_depth, 1.0 / opt.min_depth
-        return (1.0 / depth - lo) / (hi - lo)
+        return (1.0 / d - lo) / (hi - lo)
 
-    dd = np.abs(disp(depths[0][:1]) - disp(ref))
-    print(f"serve: |d disp| vs CPU f32 mean {dd.mean():.3e} max {dd.max():.3e} "
+    dd = np.abs(disp(depth) - disp(ref))
+    print(f"{tag}: |d disp| vs CPU f32 mean {dd.mean():.3e} max {dd.max():.3e} "
           f"(tol {DISP_MEAN_TOL:g} / {DISP_MAX_TOL:g}); disp range "
           f"[{disp(ref).min():.4f}, {disp(ref).max():.4f}]")
     if not (dd.mean() <= DISP_MEAN_TOL and dd.max() <= DISP_MAX_TOL):
-        raise AssertionError("card forward disagrees with the CPU forward")
+        raise AssertionError(f"{tag}: card forward disagrees with the CPU forward")
 
-    # request latency: host clock around predict_depth, which returns host
-    # numpy (so the device work is finished)
+
+def _latency(fn, requests, tag):
+    """Median host wall of 10 calls, which return host numpy (so the device
+    work is finished)."""
+    import numpy as np
+
     times = []
     for i in range(10):
         t0 = time.perf_counter()
-        sess.predict_depth(requests[i % REQUESTS])
+        fn(*requests[i % len(requests)])
         times.append(time.perf_counter() - t0)
     med = float(np.median(times)) * 1e3
-    print(f"serve: predict_depth B={BATCH} 640x192 bf16: median {med:.3f} ms/batch "
-          f"({BATCH / med * 1e3:.2f} images/s), all {[round(t * 1e3, 3) for t in times]} ms")
-    print(f"serve: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    print(f"{tag} B={BATCH} 640x192 bf16: median {med:.3f} ms/batch "
+          f"({BATCH / med * 1e3:.2f} images/s), all "
+          f"{[round(t * 1e3, 3) for t in times]} ms")
+    return med
+
+
+def serve_teacher(sess, cpu, opt, requests):
+    """Answer REQUESTS teacher batches on the card through the kernels;
+    check the outputs, the launch counts and agreement with the CPU f32
+    forward."""
+    import torch
+
+    from ppeadepth_tpu_torch import kernels
+
+    blocks = sum(s[4] for s in _stage_shapes())
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    depths = [sess.predict_depth(img) for img, _ in requests]
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    _check_counts(counts, {"lk_dwconv": blocks * REQUESTS,
+                           "ffn_fused": blocks * REQUESTS, "plane_sweep": 0},
+                  f"teacher: {REQUESTS} requests of B={BATCH}")
+    _check_depths(depths, opt, "teacher")
+    t0 = time.perf_counter()
+    ref = cpu.predict_depth(requests[0][0][:1])
+    print(f"teacher: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
+    _compare_disp(depths[0][:1], ref, opt, "teacher")
+    _latency(lambda img, _: sess.predict_depth(img), requests,
+             "teacher: predict_depth")
+    print(f"teacher: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return counts
+
+
+def serve_student(sess, cpu, opt, requests):
+    """Answer REQUESTS student batches (current frame + previous frame) on
+    the card; check the outputs, the launch counts (kernel C once, kernels
+    A and B on stage 0 twice and stages 1-3 once) and agreement with the
+    CPU f32 forward."""
+    import torch
+
+    from ppeadepth_tpu_torch import kernels
+
+    blocks = sum(s[4] for s in _stage_shapes()) + _stage_shapes()[0][4]
+    K, invK = _kitti_K(opt.height // 4, opt.width // 4, BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    depths = [sess.predict_depth_multi(img, lk, K, invK) for img, lk in requests]
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    _check_counts(counts, {"lk_dwconv": blocks * REQUESTS,
+                           "ffn_fused": blocks * REQUESTS,
+                           "plane_sweep": REQUESTS},
+                  f"student: {REQUESTS} requests of B={BATCH}")
+    _check_depths(depths, opt, "student")
+    img, lk = requests[0]
+    t0 = time.perf_counter()
+    ref = cpu.predict_depth_multi(img[:1], lk[:1], K[:1], invK[:1])
+    print(f"student: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
+    _compare_disp(depths[0][:1], ref, opt, "student")
+    _latency(lambda img, lk: sess.predict_depth_multi(img, lk, K, invK),
+             requests, "student: predict_depth_multi")
+    print(f"student: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    return counts
+
+
+def serve_pose(sess, cpu, requests):
+    """`predict_pose` on REQUESTS pairs: a rigid transform, launching none
+    of the kernels, equal to the CPU f32 result."""
+    import numpy as np
+
+    from ppeadepth_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    poses = [sess.predict_pose(lk, img) for img, lk in requests]
+    counts = dict(kernels.launch_counts)
+    _check_counts(counts, {k: 0 for k in counts}, f"pose: {REQUESTS} pairs")
+    worst, ortho = 0.0, 0.0
+    for T, (img, lk) in zip(poses, requests):
+        if T.shape != (BATCH, 4, 4) or not np.isfinite(T).all():
+            raise AssertionError(f"pose: shape {T.shape} or non-finite")
+        if not (T[:, 3] == np.array([0, 0, 0, 1], np.float32)).all():
+            raise AssertionError("pose: last row is not [0, 0, 0, 1]")
+        R = T[:, :3, :3].astype(np.float64)
+        ortho = max(ortho, np.abs(R @ R.transpose(0, 2, 1) - np.eye(3)).max())
+        worst = max(worst, np.abs(T - cpu.predict_pose(lk, img)).max())
+    print(f"pose: [B,4,4] rigid, max |R R^T - I| {ortho:.3e} (tol 1e-5); "
+          f"max |d| vs CPU f32 {worst:.3e} (tol {POSE_TOL:g}); translation "
+          f"norm of the first pair {np.linalg.norm(poses[0][:, :3, 3], axis=1).mean():.4e}")
+    if not (ortho <= 1e-5 and worst <= POSE_TOL):
+        raise AssertionError("pose: not orthonormal or disagrees with the CPU")
+    return counts
+
+
+def _category(name):
+    n = name.lower()
+    for key, cat in (("lk_dwconv", "kernel A (lk_dwconv)"),
+                     ("ffn_", "kernel B (ffn_fused + split epilogue)"),
+                     ("plane_sweep", "kernel C (plane_sweep)"),
+                     ("memcpy htod", "memcpy host -> device"),
+                     ("memcpy dtoh", "memcpy device -> host"),
+                     ("reflection_pad", "reflection pad (decoder)"),
+                     ("batch_norm", "batch norm (eval)"),
+                     ("upsample", "upsample + cat"), ("catarray", "upsample + cat"),
+                     ("reduce", "reductions (cost-volume max/sum/argmin, means)"),
+                     ("index", "gather/index"), ("max_pool", "max pool")):
+        if key in n:
+            return cat
+    if any(k in n for k in ("conv", "gemm", "xmma", "cutlass", "cudnn",
+                            "nchw", "nhwc", "implicit", "sm90", "winograd")):
+        return "cuDNN/cuBLAS convs and GEMMs (incl. layout transposes)"
+    return "other elementwise"
+
+
+def profile_serving(tag, fn, requests):
+    """torch.profiler over 5 calls: device time by kernel category, device
+    busy (union of kernel intervals) and the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*requests[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            fn(*requests[i % len(requests)])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    spans, cats = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = e.time_range
+        spans.append((r.start, r.end))
+        c = cats.setdefault(_category(e.name), [0.0, 0])
+        c[0] += (r.end - r.start) / 1e3 / 5
+        c[1] += 1
+    if not spans:
+        raise AssertionError(f"profile {tag}: the trace holds no device time")
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy = busy / 1e3 / 5
+    total = sum(v[0] for v in cats.values())
+    print(f"profile {tag}: per batch, device busy {busy:.3f} ms, host wall "
+          f"{wall:.3f} ms under the profiler, idle share {1 - busy / wall:.4f}")
+    for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile {tag}: {cat}: {ms:.3f} ms/batch, {100 * ms / total:.1f} % "
+              f"of device time, {n / 5:g} kernels/batch")
 
 
 def main():
@@ -304,6 +603,7 @@ def main():
     import numpy as np
 
     from ppeadepth_tpu_torch.kernels import build
+    from ppeadepth_tpu_torch.serve import InferenceSession
 
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -313,6 +613,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    # the CPU f32 references and the plain versions compare in full f32;
+    # the pose net turns TF32 off itself (models.repdepth.RepDepth.pose_pair)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -326,23 +628,56 @@ def main():
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
-    a_err, a_ms, a_plain = check_lk_dwconv(dev, rng)
-    b_err, b_ms, b_plain = check_ffn_fused(dev, rng)
+    a = check_lk_dwconv(dev, rng)
+    b = check_ffn_fused(dev, rng)
+    c = check_plane_sweep(dev, rng)
 
-    counts = serve(TEACHER_B)
+    opt = SHIPPED_B
+    sd = _random_state_dict(opt)
+    t0 = time.perf_counter()
+    sess = InferenceSession(opt, sd, device="cuda", dtype="bfloat16",
+                            min_depth_bin=DEPTH_BINS[0], max_depth_bin=DEPTH_BINS[1])
+    print(f"serve: session built in {time.perf_counter() - t0:.2f} s")
+    cpu = InferenceSession(opt, sd, device="cpu", dtype="float32",
+                           min_depth_bin=DEPTH_BINS[0], max_depth_bin=DEPTH_BINS[1])
+    img_rng = np.random.RandomState(SEED + 1)
+    requests = []
+    for _ in range(REQUESTS):
+        img = img_rng.rand(BATCH, opt.height, opt.width, 3).astype("float32")
+        # the previous frame: the current one shifted by a few pixels, so the
+        # plane sweep sees structure
+        requests.append((img, np.roll(img, (2, 5), (1, 2)).copy()))
 
-    print(json.dumps({"kernels": [
-        {"name": "lk_dwconv", "route": "cuda",
-         "source": "ppeadepth_tpu_torch/csrc/lk_dwconv.cu",
-         "replaces": "ppeadepth_tpu/kernels/banded_conv.py:287",
-         "launches": counts["lk_dwconv"], "max_abs_err": a_err,
-         "ms": a_ms, "plain_ms": a_plain},
-        {"name": "ffn_fused", "route": "cuda",
-         "source": "ppeadepth_tpu_torch/csrc/ffn_fused.cu",
-         "replaces": "ppeadepth_tpu/kernels/ffn_mxu.py:201",
-         "launches": counts["ffn_fused"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain},
-    ]}))
+    by_path = {"predict_depth": serve_teacher(sess, cpu, opt, requests),
+               "predict_depth_multi": serve_student(sess, cpu, opt, requests),
+               "predict_pose": serve_pose(sess, cpu, requests)}
+    if "--profile" in sys.argv[1:]:
+        K, invK = _kitti_K(opt.height // 4, opt.width // 4, BATCH)
+        profile_serving("predict_depth_multi",
+                        lambda img, lk: sess.predict_depth_multi(img, lk, K, invK),
+                        requests)
+        profile_serving("predict_depth", lambda img, _: sess.predict_depth(img),
+                        requests)
+
+    student = by_path["predict_depth_multi"]
+    entries = []
+    for kname, src, replaces, res, per in (
+            ("lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
+             "teacher forward (24 calls)"),
+            ("ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
+             "teacher forward (24 calls)"),
+            ("plane_sweep", "plane_sweep.cu", "cost_volume_mxu.py:149", c,
+             "call (one per student request)")):
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"ppeadepth_tpu_torch/csrc/{src}",
+            "replaces": f"ppeadepth_tpu/kernels/{replaces}",
+            "launches": student[kname], "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"], "times_per": per,
+            "launches_by_path": {p: n[kname] for p, n in by_path.items()}})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

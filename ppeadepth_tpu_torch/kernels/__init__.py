@@ -6,7 +6,7 @@ the CPU, and launches its CUDA kernel (or raises) for tensors on a card.
 run on the card went through the kernels.
 """
 
-launch_counts = {"lk_dwconv": 0, "ffn_fused": 0}
+launch_counts = {"lk_dwconv": 0, "ffn_fused": 0, "plane_sweep": 0}
 
 
 def reset_launch_counts() -> None:

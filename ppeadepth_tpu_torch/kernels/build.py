@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources under `ppeadepth_tpu_torch/csrc/` compile with nvcc into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), loaded with ctypes. The library is built at first use into
-`build/kernels/` at the repository root, named by a hash of the sources and
-flags so an edited source is rebuilt, and written under a temporary name
-then renamed so concurrent processes never load a half-written file.
+All sources under `ppeadepth_tpu_torch/csrc/` compile with nvcc, one
+process per source, all started together, and link into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+loaded with ctypes. The library is built at first use into `build/kernels/`
+at the repository root, named by a hash of the sources and flags so an
+edited source is rebuilt, and written under a temporary name then renamed
+so concurrent processes never load a half-written file.
 
 Pointer and stream arguments are declared `c_void_p`: left undeclared,
 ctypes would pass each Python int as a 32-bit C int and cut the address.
@@ -18,14 +19,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lk_dwconv.cu", "ffn_fused.cu")
+SOURCES = ("lk_dwconv.cu", "ffn_fused.cu", "plane_sweep.cu")
+# no --use_fast_math: kernel C's edge mask needs IEEE division and rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +39,8 @@ _SIGNATURES = {
     # splits, chunks_per_split, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
+    # cur, lk, A, t, bins, out, B, H, W, C, D, bf16, stream
+    "ppea_plane_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -60,6 +65,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands as concurrent processes and wait for every one;
+    raise with the output of the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, p in procs:
+        out, err = p.communicate()
+        results.append((cmd, p.returncode, out, err))
+    failed = [r for r in results if r[1] != 0]
+    if failed:
+        cmd, rc, out, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n{err}")
+    return results
+
+
 def build() -> Path:
     """Compile the kernel library if no build of these sources exists;
     returns its path. Records the compile time and ptxas report in
@@ -69,19 +91,18 @@ def build() -> Path:
     if lib_path.exists():
         build_log.setdefault("seconds", 0.0)
         return lib_path
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [str(Path(tmp_dir) / f"{s}.o") for s in SOURCES]
+        compiled = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                             for s, o in zip(SOURCES, objs)])
+        tmp = str(Path(tmp_dir) / lib_path.name)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib_path)
     build_log["seconds"] = time.perf_counter() - t0
-    build_log["command"] = " ".join(cmd)
-    build_log["ptxas"] = proc.stderr
+    build_log["command"] = "\n".join(" ".join(r[0]) for r in compiled)
+    build_log["ptxas"] = "".join(r[3] for r in compiled)
     return lib_path
 
 

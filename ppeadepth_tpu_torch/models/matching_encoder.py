@@ -1,0 +1,75 @@
+"""Multi-frame matching encoder: RepLKNet with a plane-sweep cost volume
+spliced in after stage 0 (JAX counterpart: models/matching_encoder.py
+`RepLKMatching`; reference replk_matching.py:251-302).
+
+  current feats = stem + stage 0 of the current image
+  lookup feats  = stem + stage 0 of the lookup frames (a second pass)
+  cost volume   = plane sweep over `num_depth_bins` hypotheses on the
+                  features (kernel C), confidence mask, lowest-cost
+                  disparity
+  fusion        = ReLU(Conv3x3(concat(current feats, cost * confidence)))
+                  (`reduce_conv`)
+  resume        = transitions + stages 1..3 for the 4-level pyramid
+
+Inference only. The DynamicDepth variant of the cost volume (`dyn`) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops import cost_volume as CV
+from .replknet import RepLKNet
+
+
+class RepLKMatching(nn.Module):
+    def __init__(self, rep_size: str = "b", adpt_test: int = -1,
+                 g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
+                 trans_adpt: bool = False, input_adpt: bool = False,
+                 merged: bool = False, num_depth_bins: int = 96,
+                 depth_binning: str = "log"):
+        super().__init__()
+        self.replk = RepLKNet(
+            rep_size=rep_size, adpt_test=adpt_test, g_blk=g_blk, g_ffn=g_ffn,
+            ratio=ratio, trans_adpt=trans_adpt, input_adpt=input_adpt,
+            merged=merged)
+        c0 = self.replk.stem[0].conv.out_channels
+        self.reduce_conv = nn.Sequential(
+            nn.Conv2d(c0 + num_depth_bins, c0, 3, padding=1), nn.ReLU())
+        self.num_depth_bins = num_depth_bins
+        self.depth_binning = depth_binning
+
+    def feature_extraction(self, image):
+        """stem + stage 0 -> features at 1/4 resolution."""
+        return self.replk.forward_stage(0, self.replk.forward_stem(image))
+
+    def forward(self, current_image, lookup_images, poses, K, invK,
+                min_depth_bin, max_depth_bin):
+        """current_image: [B, 3, H, W]; lookup_images: [B, F, 3, H, W];
+        poses: [B, F, 4, 4] current->lookup; K, invK: [B, 4, 4] at 1/4
+        (matching) scale; min/max_depth_bin: scalars.
+
+        Returns (features[4], lowest_cost [B, H/4, W/4],
+        confidence [B, H/4, W/4])."""
+        B, F_ = lookup_images.shape[:2]
+        cur = self.feature_extraction(current_image)
+        lk = self.feature_extraction(lookup_images.flatten(0, 1))
+        lk = lk.reshape(B, F_, *lk.shape[1:])
+        bins = CV.compute_depth_bins(min_depth_bin, max_depth_bin,
+                                     self.num_depth_bins, self.depth_binning,
+                                     device=cur.device)
+        cost, missing = CV.plane_sweep_cost_volume(cur, lk, poses, K, invK, bins)
+        conf = CV.confidence_mask(cost, missing)
+        lowest_cost = CV.lowest_cost_disparity(cost, bins)
+
+        x = torch.cat([cur, (cost * conf[:, None]).to(cur.dtype)], 1)
+        x = self.reduce_conv(x.to(dtype=self.reduce_conv[0].weight.dtype,
+                                  memory_format=torch.channels_last))
+        features = [cur]
+        for i in range(1, 4):
+            x = self.replk.forward_transition(i - 1, x)
+            x = self.replk.forward_stage(i, x)
+            features.append(x)
+        return features, lowest_cost, conf

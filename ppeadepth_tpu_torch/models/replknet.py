@@ -246,15 +246,32 @@ class RepLKNet(nn.Module):
             if isinstance(m, ConvFFN):
                 m.fold(dtype)
 
-    def forward(self, x):
-        """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32]."""
-        x = x.to(self.stem[0].conv.weight.dtype)
+    # composable pieces: the matching encoder re-enters mid-network. The
+    # JAX `apply_norm` between them is the identity (norm_intermediate is
+    # False wherever the network is used), so it has no counterpart here.
+
+    def forward_stem(self, x):
+        """[B, 3, H, W] -> stem features at 1/4 resolution, in the compute
+        dtype and channels_last memory (the layout kernels A and B take)."""
+        x = x.to(dtype=self.stem[0].conv.weight.dtype,
+                 memory_format=torch.channels_last)
         for layer in self.stem:
             x = layer(x)
+        return x
+
+    def forward_stage(self, idx: int, x):
+        return self.stages[idx](x)
+
+    def forward_transition(self, idx: int, x):
+        return self.transitions[idx](x)
+
+    def forward(self, x):
+        """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32]."""
+        x = self.forward_stem(x)
         feats = []
         for i in range(4):
-            x = self.stages[i](x)
+            x = self.forward_stage(i, x)
             feats.append(x)
             if i < 3:
-                x = self.transitions[i](x)
+                x = self.forward_transition(i, x)
         return feats

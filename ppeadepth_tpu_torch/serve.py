@@ -1,13 +1,16 @@
 """Inference session: the deployment-facing API (JAX counterpart:
 ppeadepth_tpu/serve.py `InferenceSession`).
 
-  session.predict_depth(images)      teacher depth [B, H, W]
+  session.predict_depth(images)                     teacher depth [B, H, W]
+  session.predict_depth_multi(img, lookup, K, invK) student (cost volume) depth
+  session.predict_pose(a, b)                        relative pose [B, 4, 4]
 
 The deploy form is built once: BN folded and the small kernel merged into
-the large one (`ckpt.deploy.structural_reparam`), every ConvFFN folded into
-kernel-B operands, conv/linear weights cast to the compute dtype. On a CUDA
-device the large-kernel convs and ConvFFNs run the hand-written kernels
-(bf16 only); on the CPU they run their plain versions.
+the large one (`ckpt.deploy.structural_reparam`), every ConvFFN of both
+encoders folded into kernel-B operands, conv/linear weights cast to the
+compute dtype (the pose nets stay f32). On a CUDA device the large-kernel
+convs, ConvFFNs and the plane sweep run the hand-written kernels; on the
+CPU they run their plain versions.
 
 Images are float in [0, 1] or uint8, NHWC. Depths are metric after
 disp_to_depth with the config's min/max depth.
@@ -28,18 +31,22 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class InferenceSession:
-    """Teacher depth serving.
+    """Teacher and student depth serving, and pose.
 
     opt: `ppeadepth_tpu.options.Config`, or any object with its fields that
     `models.RepDepth` reads plus height, width, min_depth and max_depth.
-    state_dict: the model in training
-    form with the reference's names (e.g. from `ckpt.convert.
-    state_dict_from_jax`); None draws random weights from `generator`
-    (seed 0 when None)."""
+    state_dict: the whole RepDepth in training form with the reference's
+    names (e.g. from `ckpt.convert.state_dict_from_jax`), loaded with
+    strict=True; None draws random weights from `generator` (seed 0 when
+    None). device: "cuda" unless the caller asks for the CPU.
+    min_depth_bin, max_depth_bin: the student's depth-bin range (the JAX
+    session's defaults; a trained model's tracker values replace them)."""
 
     def __init__(self, opt, state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 *, device, dtype: str = "bfloat16", merge_reparam: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 *, device="cuda", dtype: str = "bfloat16",
+                 merge_reparam: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 min_depth_bin: float = 0.1, max_depth_bin: float = 10.0):
         if opt.height % 32 or opt.width % 32:
             raise ValueError(f"height and width must be multiples of 32, got "
                              f"{opt.height}x{opt.width}")
@@ -48,6 +55,8 @@ class InferenceSession:
         self.opt = opt
         self.device = torch.device(device)
         self.dtype = _DTYPES[dtype]
+        self.min_depth_bin = min_depth_bin
+        self.max_depth_bin = max_depth_bin
         model = RepDepth(opt)
         if state_dict is None:
             init_weights(model, generator or torch.Generator().manual_seed(0))
@@ -58,18 +67,47 @@ class InferenceSession:
         model.load_state_dict(state_dict, strict=True)
         model.eval().to(self.device)
         if merge_reparam:
-            model.mono_encoder.fold_ffn(self.dtype)
+            model.fold_ffn(self.dtype)
         cast_compute(model, self.dtype)
         self.model = model
 
-    def predict_depth(self, images) -> np.ndarray:
-        """images: [B, H, W, 3] -> metric depth [B, H, W] (float32 numpy)."""
+    def _images(self, images):
+        """NHWC numpy (float in [0, 1] or uint8) -> f32 [B, 3, H, W] on the
+        device, an NCHW view of the NHWC bytes."""
         x = torch.as_tensor(np.asarray(images)).to(self.device)
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
-        x = x.float().permute(0, 3, 1, 2)  # NCHW view of NHWC bytes
-        with torch.inference_mode():
-            disp = self.model.forward_mono(x)[("disp", 0)][:, 0].float()
-            _, depth = disp_to_depth(disp, self.opt.min_depth,
-                                     self.opt.max_depth)
+        return x.float().permute(0, 3, 1, 2)
+
+    def _depth(self, disp):
+        _, depth = disp_to_depth(disp[:, 0].float(), self.opt.min_depth,
+                                 self.opt.max_depth)
         return depth.cpu().numpy()
+
+    def predict_depth(self, images) -> np.ndarray:
+        """images: [B, H, W, 3] -> metric depth [B, H, W] (float32 numpy)."""
+        x = self._images(images)
+        with torch.inference_mode():
+            return self._depth(self.model.forward_mono(x)[("disp", 0)])
+
+    def predict_pose(self, frame_a, frame_b, invert: bool = False) -> np.ndarray:
+        """Relative pose from a temporally ordered pair [B, H, W, 3] each ->
+        [B, 4, 4] (float32 numpy)."""
+        a, b = self._images(frame_a), self._images(frame_b)
+        with torch.inference_mode():
+            return self.model.pose_pair(a, b, invert)[2].cpu().numpy()
+
+    def predict_depth_multi(self, images, lookup, K, invK) -> np.ndarray:
+        """Student path: current frames and the previous frames [B, H, W, 3]
+        each, intrinsics K, invK [B, 4, 4] at the matching (1/4) scale ->
+        metric depth [B, H, W] (float32 numpy). The pose lookup->current
+        comes from the pose net, inverted, as in the JAX session."""
+        img, lk = self._images(images), self._images(lookup)
+        K = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(self.device)
+        invK = torch.as_tensor(np.asarray(invK), dtype=torch.float32).to(self.device)
+        with torch.inference_mode():
+            _, _, T = self.model.pose_pair(lk, img, invert=True)
+            out, _, _ = self.model.forward_multi(
+                img, lk[:, None], T[:, None], K, invK, self.min_depth_bin,
+                self.max_depth_bin)
+            return self._depth(out[("disp", 0)])

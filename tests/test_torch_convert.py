@@ -1,6 +1,8 @@
-"""Weights carried from JAX to the port: `ckpt.convert.state_dict_from_jax`
-against `ckpt/torch_import.export_state_dict`, strict loading into the
-port's RepDepth, and the port's `structural_reparam` against JAX's."""
+"""Weights carried from JAX to the port, on a whole JAX RepDepth tree
+(student and teacher encoders and decoders, pose nets):
+`ckpt.convert.state_dict_from_jax` against
+`ckpt/torch_import.export_state_dict`, strict loading into the port's
+RepDepth, and the port's `structural_reparam` against JAX's."""
 
 import numpy as np
 import pytest
@@ -12,12 +14,15 @@ from ppeadepth_tpu_torch.ckpt.convert import (
     state_dict_from_jax, torch_module_name)
 from ppeadepth_tpu_torch.ckpt.deploy import structural_reparam
 from ppeadepth_tpu_torch.models import RepDepth
-from tests.torch_parity import TINY, jax_teacher
+from tests.test_torch_student import jax_repdepth
+from tests.torch_parity import TINY
 
 
 @pytest.fixture(scope="module")
 def teacher():
-    return jax_teacher()
+    """The whole tree (the fixture keeps the name of the teacher-only tree
+    these tests began with)."""
+    return jax_repdepth()
 
 
 def test_state_dict_matches_export(teacher):
@@ -32,6 +37,9 @@ def test_state_dict_matches_export(teacher):
     assert "mono_encoder.stem.0.conv.weight" in sd
     assert "mono_depth.upconvs_0.0.conv.conv.weight" in sd
     assert "mono_encoder.stages.0.blocks.0.large_kernel.lkb_origin.conv.weight" in sd
+    for prefix in ("encoder.replk.", "encoder.reduce_conv.0.", "depth.",
+                   "pose_encoder.encoder.", "pose.net."):
+        assert any(k.startswith(prefix) for k in sd), prefix
 
 
 @pytest.mark.parametrize("merged", [False, True])
@@ -39,7 +47,9 @@ def test_port_loads_strict(teacher, merged):
     sd = state_dict_from_jax(*teacher)
     if merged:
         sd = structural_reparam(sd)
-        assert "mono_encoder.stages.0.blocks.0.large_kernel.lkb_reparam.weight" in sd
+        for enc in ("mono_encoder", "encoder.replk"):
+            assert f"{enc}.stages.0.blocks.0.large_kernel.lkb_reparam.weight" in sd
+        assert not any(".lkb_origin." in k or ".small_conv." in k for k in sd)
     model = RepDepth(TINY, merged=merged)
     model.load_state_dict(sd, strict=True)
     got = model.state_dict()

@@ -1,11 +1,12 @@
 """Port kernels on the card: each hand-written CUDA kernel against its plain
-PyTorch version, at the teacher's B=8 640x192 stage shapes of RepLKNet-31B
-and at ragged edge shapes.
+PyTorch version, at the B=8 640x192 shapes of RepLKNet-31B (the stages of
+kernels A and B, the student's plane sweep for kernel C) and at ragged
+edge shapes.
 
 Marked `gpu`; every test skips without a CUDA device. Run on a card with
 `python -m pytest -m gpu tests/test_torch_gpu_kernels.py -q`.
 
-Both sides take the same bf16 inputs; the plain version runs on their f32
+Both sides take the same inputs; the plain version runs on their f32
 upcast with TF32 off, so the error is the kernel's own (bf16 output
 rounding, f32 summation order).
 """
@@ -15,10 +16,12 @@ import pytest
 import torch
 
 from ppeadepth_tpu_torch import kernels
+from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 from ppeadepth_tpu_torch.kernels.ffn_fused import (
     FoldedFFN, ffn_fused, ffn_fused_plain)
 from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
+from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
 
 pytestmark = pytest.mark.gpu
 
@@ -110,3 +113,75 @@ def test_wrappers_raise_on_cuda_float32(cuda):
     w = torch.zeros(32, 1, 3, 3, device=cuda)
     with pytest.raises(TypeError):
         lk_depthwise(x, w)
+
+
+def _sweep_inputs(rng, B, C, H, W, D, dtype, device, zero_pose=False):
+    """Features, (A, t) of a non-degenerate pose (small rotation, x+y+z
+    translation) under KITTI-style intrinsics at H x W, and log bins."""
+    def feats():
+        return torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32)).to(
+            device).to(dtype).permute(0, 3, 1, 2)
+
+    K = np.array([[0.58 * W, 0, 0.5 * W], [0, 1.92 * H, 0.5 * H], [0, 0, 1]])
+    A = np.zeros((B, 3, 3), np.float32)
+    t = np.zeros((B, 3), np.float32)
+    if not zero_pose:
+        for b in range(B):
+            th = rng.randn(3) * 0.02
+            c, s = np.cos(th), np.sin(th)
+            R = (np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]])
+                 @ np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+                 @ np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]]))
+            A[b] = K @ R @ np.linalg.inv(K)
+            t[b] = K @ (rng.randn(3) * [0.05, 0.03, 0.1] + [0.1, 0.02, 0.05])
+    bins = compute_depth_bins(0.1, 10.0, D, device=device)
+    return (feats(), feats(), torch.from_numpy(A).to(device),
+            torch.from_numpy(t).to(device), bins)
+
+
+def _near_boundary(A, t, bins, H, W):
+    """Samples within 1e-4 px of an edge-mask boundary (plain coordinates)."""
+    x, y = project(A, t, bins, H, W)
+    d = torch.minimum(torch.minimum((x - 2).abs(), (x - (W - 2)).abs()),
+                      torch.minimum((y - 2).abs(), (y - (H - 2)).abs()))
+    return (d < 1e-4).reshape(A.shape[0], -1, H, W)
+
+
+@pytest.mark.parametrize("B,C,H,W,D", [
+    (8, 128, 48, 160, 96),       # the student's main path, 640x192
+    (2, 16, 13, 27, 40),         # H*W not a multiple of 8 pixels, D of 32
+    (1, 256, 11, 21, 33),        # the widest C, two channel groups a lane
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_sweep_matches_plain(cuda, B, C, H, W, D, dtype):
+    """Within 5e-5 of the peak (the JAX mxu_f32 check's bound), at most
+    one entry in 1e5 beyond it and each at a mask boundary; bf16 inputs
+    against the plain version on the same bf16 values."""
+    rng = np.random.RandomState(C + D)
+    cur, lk, A, t, bins = _sweep_inputs(rng, B, C, H, W, D, dtype, cuda)
+    n0 = kernels.launch_counts["plane_sweep"]
+    y = plane_sweep(cur, lk, A, t, bins)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["plane_sweep"] == n0 + 1
+    assert y.shape == (B, D, H, W) and y.dtype == torch.float32
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    ref = plane_sweep_plain(cur, lk, A, t, bins)
+    assert (ref > 0).float().mean().item() > 0.1
+    beyond = (y - ref).abs() > 5e-5 * ref.abs().max()
+    near = _near_boundary(A, t, bins, H, W)
+    assert beyond.sum().item() <= beyond.numel() // 100000
+    assert not (beyond & ~near).any()
+
+
+def test_plane_sweep_zero_pose(cuda):
+    rng = np.random.RandomState(5)
+    args = _sweep_inputs(rng, 2, 128, 12, 40, 96, torch.bfloat16, cuda,
+                         zero_pose=True)
+    assert (plane_sweep(*args) == 0).all()
+
+
+def test_plane_sweep_raises_on_unsupported_c(cuda):
+    rng = np.random.RandomState(6)
+    args = _sweep_inputs(rng, 1, 12, 8, 16, 8, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        plane_sweep(*args)

@@ -1,7 +1,7 @@
 """Port serving path: `InferenceSession.predict_depth` against the JAX
 deploy forward (the body of ppeadepth_tpu/serve.py:109-126) on the same
-merged weights, the port's freedom from jax, and chip_smoke.py refusing to
-run without a card."""
+merged weights of the whole RepDepth, the port's freedom from jax, and
+chip_smoke.py refusing to run without a card."""
 
 import subprocess
 import sys
@@ -18,7 +18,8 @@ from ppeadepth_tpu.core.geometry import disp_to_depth
 from ppeadepth_tpu.models import RepDepth as JRepDepth
 from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.serve import InferenceSession
-from tests.torch_parity import TINY, jax_teacher
+from tests.test_torch_student import jax_repdepth
+from tests.torch_parity import TINY
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -32,7 +33,7 @@ def test_predict_depth_matches_jax():
     """f32, B=2, 64x96, float and uint8 input. Compared as disparity
     (depth = 1/scaled disparity magnifies errors near max_depth): atol
     2e-4 as the module parity tests."""
-    params, stats = jax_teacher()
+    params, stats = jax_repdepth()
     mp, ms = jax_reparam(params, stats)
     model = JRepDepth(TINY.replace(merged=True))
 
@@ -88,9 +89,10 @@ from types import SimpleNamespace
 import numpy as np
 from ppeadepth_tpu_torch.serve import InferenceSession
 opt = SimpleNamespace(adapter=True, rep_size="t", adpt_test=4, ratio=0.25,
-                      g_blk=1.0, g_ffn=1.0, mono_trans=False,
-                      mono_input=False, dc=False, height=64, width=96,
-                      min_depth=0.1, max_depth=100.0)
+                      g_blk=1.0, g_ffn=1.0, trans=False, input=False,
+                      mono_trans=False, mono_input=False, dc=False,
+                      dyn_cv=False, num_depth_bins=96, depth_binning="log",
+                      height=64, width=96, min_depth=0.1, max_depth=100.0)
 d = InferenceSession(opt, device="cpu", dtype="float32").predict_depth(
     np.zeros((1, 64, 96, 3), np.float32))
 assert d.shape == (1, 64, 96)
