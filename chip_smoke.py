@@ -3,27 +3,32 @@
 
     python3 chip_smoke.py              # the checks below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
-                                       # each serving path's device time
+                                       # each path's device time
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
 adapters, adpt_test=4, 640x192, bf16, merged deploy form, B=8, 96 depth
-bins, ResNet-18 pose net) on seeded random weights, after building the
-hand-written kernels from `ppeadepth_tpu_torch/csrc/` and holding each
-against its plain PyTorch version at the shapes the paths give it:
+bins, ResNet-18 pose net) and its stage-1 training step
+(`ppeadepth_tpu_torch.train.step.make_train_step`, the same network in
+training form, bf16 compute on f32 parameters, B=12) on seeded random
+weights, after building the hand-written kernels from
+`ppeadepth_tpu_torch/csrc/` and holding each against its plain PyTorch
+version at the shapes the paths give it:
 
   * teacher `predict_depth`, 3 requests, against the CPU f32 forward;
   * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
-  * `predict_pose`, 3 pairs, against the CPU f32 result.
+  * `predict_pose`, 3 pairs, against the CPU f32 result;
+  * one f32 training step at B=2 against the same step on the CPU;
+  * 1 + 5 bf16 training steps at B=12 with their invariants checked.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Any failed phase raises, so the exit code is non-zero;
 without a CUDA device it stops before doing anything.
 
 Output, in order: versions and the card's name and power limit; the kernel
-build; per-shape kernel errors and times; the serving checks and times; one
-JSON line with the kernels' summary; and as the last line
-`{"ok": true, "device": {...}}`.
+build; per-shape kernel errors and times; the serving checks and times; the
+training checks and times; one JSON line with the kernels' summary; and as
+the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -47,6 +52,15 @@ DISP_MEAN_TOL = 5e-3    # bf16 card forward vs CPU f32 forward, |d disp|
 DISP_MAX_TOL = 5e-2
 POSE_TOL = 1e-4         # f32 card pose vs CPU f32 pose, max |d|
 DEPTH_BINS = (0.1, 10.0)  # the JAX session's default min/max depth bin
+D_FWD_TOL = 1e-5        # kernel D forward: max|d| (images in [0, 1])
+D_BWD_REL_TOL = 1e-5    # kernel D coordinate gradient: max|d| <= tol x max|ref|
+A_F32_REL_TOL = 1e-4    # kernel A in f32 (forward, dx): max|d| <= tol x max|ref|
+TRAIN_BATCH = 12        # bench.py's train-step batch
+TRAIN_STEPS = 5         # timed, after one warm-up step
+PARITY_BATCH = 2        # the f32 card step against the f32 CPU step
+PARITY_METRIC_TOL = 1e-3  # |d| of the loss and each metric (values ~0.1-1)
+PARITY_GRAD_L2 = 1e-2   # relative L2 of the concatenated trainable gradient
+PARITY_BIN_REL = 1e-4   # depth bins after the step, relative
 
 # H100 SXM data-sheet peaks (dense, 700 W): the bound of each kernel is
 # max(bytes / memory rate, operations / peak rate of their type)
@@ -63,6 +77,16 @@ SHIPPED_B = SimpleNamespace(
     g_ffn=1.0, trans=False, input=False, mono_trans=False, mono_input=False,
     dc=False, dyn_cv=False, num_depth_bins=96, depth_binning="log",
     height=192, width=640, min_depth=0.1, max_depth=100.0)
+# ... and the fields the training step reads, at Config's defaults with bf16
+# compute (bench.py's train step: no use_checkpoint, batch 12)
+TRAIN_B = SimpleNamespace(
+    **vars(SHIPPED_B), frame_ids=(0, -1, 1), matching_ids=(0, -1),
+    drop_path_rate=0.3, use_checkpoint=False, compute_dtype="bfloat16",
+    learning_rate=1e-4, scheduler_step_size=15, disparity_smoothness=1e-3,
+    no_ssim=False, disable_automasking=False, disable_motion_masking=False,
+    no_matching_augmentation=False, selec_reproj=False, notadabins=False,
+    freeze_teacher_and_pose=False, freeze_pose=False, grad_accum=1,
+    fullft_reb=False, dec_only=False, lps2=False)
 
 
 def _time_pair(plain, kernel, iters):
@@ -328,6 +352,188 @@ def check_plane_sweep(dev, rng):
     return dict(max_abs_err=worst, library_ms=None, **out)
 
 
+def _warp_inputs(dev, rng, n, height, width):
+    """Kernel D's main-path inputs: n RGB images [n, H, W, 3] in [0, 1] and
+    the coordinates of a smooth random depth map (1-80 m) reprojected
+    through a non-degenerate pose with KITTI intrinsics, some out of
+    range."""
+    import torch
+    import torch.nn.functional as F
+
+    from ppeadepth_tpu_torch.core.geometry import reproject_coords
+
+    img = torch.from_numpy(rng.rand(n, height, width, 3).astype("float32")).to(dev)
+    disp = torch.from_numpy(rng.rand(n, 1, height // 16, width // 16)
+                            .astype("float32")).to(dev)
+    disp = F.interpolate(disp, size=(height, width), mode="bilinear",
+                         align_corners=False)
+    depth = 1.0 / (disp * (1 / 1.0 - 1 / 80.0) + 1 / 80.0)
+    K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(height, width, n))
+    T = torch.from_numpy(_pose_4x4(rng, n)).to(dev)
+    coords = reproject_coords(depth[:, 0], invK, K, T).contiguous()
+    return img, coords
+
+
+def check_warp(dev, rng):
+    """Kernel D, forward and coordinate gradient, against its plain
+    version (torch gathers, autograd for the gradient) at one branch's
+    warp of the training step: [24, 192, 640, 3] (2 frames x B=12), f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from ppeadepth_tpu_torch.kernels.warp import (
+        coords_grad, warp_border, warp_border_plain)
+
+    n, height, width = 2 * TRAIN_BATCH, SHIPPED_B.height, SHIPPED_B.width
+    img, coords = _warp_inputs(dev, rng, n, height, width)
+    g = torch.from_numpy(rng.randn(n, height, width, 3).astype("float32")).to(dev)
+    lim = torch.tensor([1.0, 1.0], device=dev)
+    out_of_range = (coords.abs() > lim).any(-1).float().mean().item()
+
+    c = coords.clone().requires_grad_(True)
+    out = warp_border(img, c)
+    out.backward(g)
+    torch.cuda.synchronize()
+    cp = coords.clone().requires_grad_(True)
+    ref = warp_border_plain(img, cp)
+    ref.backward(g)
+    fwd_err = (out.detach() - ref.detach()).abs().max().item()
+    bwd_err = (c.grad - cp.grad).abs().max().item()
+    bwd_peak = cp.grad.abs().max().item()
+    tag = f"kernel D  [{n},{height},{width},3]"
+    print(f"{tag}: {out_of_range:.4f} of the samples out of range; forward "
+          f"max|d|={fwd_err:.3e} (tol {D_FWD_TOL:g}); coordinate gradient "
+          f"max|d|={bwd_err:.3e} max|ref|={bwd_peak:.3e} (tol {D_BWD_REL_TOL:g} "
+          f"x max|ref|)")
+    if not (fwd_err <= D_FWD_TOL and bwd_err <= D_BWD_REL_TOL * bwd_peak):
+        raise AssertionError(f"kernel D disagrees: {fwd_err}, {bwd_err}")
+
+    # plain and library timings: the image takes no gradient, as in the loss
+    cl = coords.clone().requires_grad_(True)
+    img_nchw = img.permute(0, 3, 1, 2)
+
+    def library_fwd():
+        return F.grid_sample(img_nchw, cl, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_out = library_fwd()
+    ref_out = warp_border_plain(img, cp)
+    g_nchw = g.permute(0, 3, 1, 2)
+    results = {}
+    for phase, plain, kernel, library in (
+            ("forward",
+             lambda: warp_border_plain(img, coords),
+             lambda: warp_border(img, coords),
+             library_fwd),
+            ("backward",
+             lambda: torch.autograd.grad(ref_out, cp, g, retain_graph=True),
+             lambda: coords_grad(img, coords, g),
+             lambda: torch.autograd.grad(lib_out, cl, g_nchw, retain_graph=True))):
+        pl, kk = _time_pair(plain, kernel, 20)
+        lib, _ = _time_pair(library, kernel, 20)
+        nbytes = (4 * n * height * width * (2 + 3 + 3) if phase == "forward"
+                  else 4 * n * height * width * (2 + 3 + 3 + 2))
+        flop = n * height * width * (30 if phase == "forward" else 45)
+        bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
+        print(f"{tag} {phase}: {kk:.4f} ms/call ({nbytes / kk / 1e9:.3f} TB/s of "
+              f"{nbytes / 1e6:.1f} MB), plain (torch gathers) {pl:.4f} ms, "
+              f"F.grid_sample {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        results[phase] = dict(ms=kk, plain_ms=pl, library_ms=lib, bound_ms=bnd,
+                              bound_by=by)
+    results["forward"]["max_abs_err"] = fwd_err
+    results["backward"]["max_abs_err"] = bwd_err
+    return results
+
+
+def _train_lk_calls(opt):
+    """(C, H, W, k, forward calls, dx calls) of the large-kernel convs in
+    one training step: every block's large and small kernel in the teacher
+    and in the student's current-frame pass (forward and dx), and the
+    student's lookup pass through stage 0 (forward only, no gradient)."""
+    from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
+
+    small = REPLK_CONFIGS[opt.rep_size]["small_kernel"]
+    calls = []
+    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes()):
+        lookup = blocks if i == 0 else 0
+        for kk in (k, small):  # lkb_origin and small_conv
+            calls.append((C, H, W, kk, 2 * blocks + lookup, 2 * blocks))
+    return calls
+
+
+def check_lk_train(dev, rng):
+    """Kernel #2, the training large-kernel conv: kernel A without bias
+    (forward) and on the flipped kernel (dx, through the autograd
+    Function), against its plain version (cuDNN in f32, TF32 off) at each
+    conv shape of the training step at B=12, in f32 and bf16. Times and
+    bounds are per training step in bf16 (the main path), summed over its
+    calls; the library yardstick is cuDNN's depthwise `F.conv2d` forward
+    and `torch.nn.grad.conv2d_input`."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import (
+        _input_grad, depthwise_plain, lk_depthwise, lk_depthwise_train)
+
+    worst, step = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bound, f32 = _Bound(), {"ms": 0.0, "plain_ms": 0.0}
+    for C, H, W, k, n_fwd, n_dx in _train_lk_calls(TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            def t(shape, scale):
+                return torch.from_numpy((rng.randn(*shape) * scale).astype(
+                    "float32")).to(dev).to(dtype)
+
+            x = t((TRAIN_BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
+            g = t((TRAIN_BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
+            w = t((C, 1, k, k), 1.0 / k)
+            wf = w.flip(-1, -2).contiguous()
+            xg = x.detach().requires_grad_(True)
+            y = lk_depthwise_train(xg, w)
+            y.backward(g)
+            torch.cuda.synchronize()
+            tol = A_REL_TOL if dtype == torch.bfloat16 else A_F32_REL_TOL
+            tag = f"kernel #2 [{TRAIN_BATCH},{H},{W},{C}] k={k} {str(dtype)[6:]}"
+            errs = []
+            for name, got, ref in (
+                    ("forward", y, depthwise_plain(x.float(), w.float())),
+                    ("dx", xg.grad, depthwise_plain(g.float(), wf.float()))):
+                err = (got.float() - ref).abs().max().item()
+                peak = ref.abs().max().item()
+                errs.append(f"{name} max|d|={err:.3e} max|ref|={peak:.3e}")
+                if not err <= tol * peak:
+                    raise AssertionError(f"{tag} {name} disagrees: {err} > {tol} x {peak}")
+                worst = max(worst, err)
+            print(f"{tag}: {'; '.join(errs)} (tol {tol:g} x max|ref|)")
+            p_f, k_f = _time_pair(lambda: depthwise_plain(x, w),
+                                  lambda: lk_depthwise(x, w), 10)
+            p_d, k_d = _time_pair(lambda: depthwise_plain(g, wf),
+                                  lambda: _input_grad(g, w), 10)
+            lib_d, _ = _time_pair(
+                lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=k // 2,
+                                                   groups=C),
+                lambda: _input_grad(g, w), 10)
+            macs = _dw_macs(TRAIN_BATCH, H, W, C, k)
+            esize = x.element_size()
+            bnd, by = _bound_ms(esize * (2 * TRAIN_BATCH * H * W * C + C * k * k),
+                                2 * macs, F32_FLOP_PER_S)
+            print(f"{tag}: forward {k_f:.4f} ms (plain/cuDNN {p_f:.4f}), dx "
+                  f"{k_d:.4f} ms (plain {p_d:.4f}, conv2d_input {lib_d:.4f}), "
+                  f"bound {bnd:.4f} ms ({by}) each; x{n_fwd} forward, x{n_dx} dx "
+                  f"per step")
+            if dtype == torch.bfloat16:
+                step["ms"] += k_f * n_fwd + k_d * n_dx
+                step["plain_ms"] += p_f * n_fwd + p_d * n_dx
+                step["library_ms"] += p_f * n_fwd + lib_d * n_dx
+                bound.add(bnd, by, n_fwd + n_dx)
+            else:
+                f32["ms"] += k_f * n_fwd + k_d * n_dx
+                f32["plain_ms"] += p_f * n_fwd + p_d * n_dx
+    print(f"kernel #2 per training step (bf16): {step['ms']:.3f} ms, plain "
+          f"{step['plain_ms']:.3f} ms, bound {bound.ms:.3f} ms; in f32 "
+          f"{f32['ms']:.3f} ms, plain {f32['plain_ms']:.3f} ms")
+    return dict(max_abs_err=worst, bound_ms=bound.ms, bound_by=bound.by,
+                f32_ms=f32["ms"], f32_plain_ms=f32["plain_ms"], **step)
+
+
 def _random_state_dict(opt):
     """Seeded random weights of the whole RepDepth in training form.
 
@@ -350,7 +556,8 @@ def _random_state_dict(opt):
 
     from ppeadepth_tpu_torch.models import RepDepth, init_weights
 
-    model = RepDepth(opt)
+    # drop path off: the calibration passes run in train mode
+    model = RepDepth(SimpleNamespace(**{**vars(opt), "drop_path_rate": 0.0}))
     init_weights(model, torch.Generator().manual_seed(SEED))
     rng = np.random.RandomState(SEED)
 
@@ -535,15 +742,215 @@ def serve_pose(sess, cpu, requests):
     return counts
 
 
+def _train_batch(rng, batch, opt, device=None):
+    """A training batch (the JAX batch dict) with real motion: frame 0 is
+    a smooth random texture with fine noise, frames -1 and +1 shifted
+    copies of it, as the serving requests; KITTI intrinsics at scales 0 and
+    2. numpy arrays, or tensors on `device`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    H, W = opt.height, opt.width
+    coarse = torch.from_numpy(rng.rand(batch, 3, H // 8, W // 8).astype("float32"))
+    base = F.interpolate(coarse, size=(H, W), mode="bilinear", align_corners=False)
+    base = (0.8 * base.permute(0, 2, 3, 1).numpy()
+            + 0.2 * rng.rand(batch, H, W, 3).astype("float32"))
+    frames = {0: base, -1: np.roll(base, (2, 5), (1, 2)),
+              1: np.roll(base, (-2, -5), (1, 2))}
+    out = {}
+    for f, img in frames.items():
+        out[("color", f, 0)] = out[("color_aug", f, 0)] = np.ascontiguousarray(img)
+    for sc in (0, 2):
+        out[("K", sc)], out[("inv_K", sc)] = _kitti_K(H >> sc, W >> sc, batch)
+    if device is not None:
+        out = {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    return out
+
+
+def _train_setup(sd, opt, device):
+    """(model, state, step) of the port's training step on `device`, from
+    the state_dict `sd`."""
+    import torch
+
+    from ppeadepth_tpu_torch.models import RepDepth
+    from ppeadepth_tpu_torch.train.schedule import make_optimizer
+    from ppeadepth_tpu_torch.train.step import create_train_state, make_train_step
+
+    model = RepDepth(opt)
+    model.load_state_dict(sd, strict=True)
+    state = create_train_state(
+        model, opt, device=device,
+        generator=torch.Generator(device).manual_seed(SEED))
+    optim, sched = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad], opt.learning_rate,
+        steps_per_epoch=1000, step_size_epochs=opt.scheduler_step_size)
+    return model, state, make_train_step(model, opt, optim, sched)
+
+
+def train_parity(sd, dev):
+    """One f32 training step on `dev` against the same step on the CPU:
+    the same weights, batch (B=PARITY_BATCH) and draws (matching
+    augmentation from fixed uniforms, drop path off). Compares the loss,
+    every metric and the concatenated trainable gradient."""
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.train.step import StepDraws
+
+    opt = SimpleNamespace(**{**vars(TRAIN_B), "compute_dtype": "float32",
+                             "drop_path_rate": 0.0})
+    batch = _train_batch(np.random.RandomState(SEED + 2), PARITY_BATCH, opt)
+    rng = np.random.RandomState(SEED + 3)
+    u = np.linspace(0.1, 0.9, PARITY_BATCH).astype("float32")
+    noise = [rng.randn(PARITY_BATCH, opt.height, opt.width, 1).astype("float32")
+             for _ in range(2)]
+    res = {}
+    for device in (dev.type, "cpu"):
+        model, state, step = _train_setup(sd, opt, device)
+        draws = StepDraws(*(torch.from_numpy(a).to(device) for a in (u, *noise)))
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, draws)
+        grads = torch.cat([p.grad.flatten().float().cpu()
+                           for p in model.parameters() if p.requires_grad])
+        res[device] = ({k: v.item() for k, v in metrics.items()}, grads)
+        print(f"parity: f32 step B={PARITY_BATCH} on {device} in "
+              f"{time.perf_counter() - t0:.2f} s (first call)")
+        del model, step
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = res[dev.type], res["cpu"]
+    worst = max(abs(m_gpu[k] - m_cpu[k]) for k in m_cpu if "depth_bins" not in k)
+    bins = max(abs(m_gpu[k] / m_cpu[k] - 1) for k in m_cpu if "depth_bins" in k)
+    rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    print(f"parity: metrics card {m_gpu}")
+    print(f"parity: metrics CPU  {m_cpu}")
+    print(f"parity: max |d metric| {worst:.3e} (tol {PARITY_METRIC_TOL:g}), depth "
+          f"bins rel {bins:.3e} (tol {PARITY_BIN_REL:g}), trainable gradient "
+          f"({g_cpu.numel()} entries) relative L2 {rel:.3e} (tol {PARITY_GRAD_L2:g})")
+    if not (worst <= PARITY_METRIC_TOL and bins <= PARITY_BIN_REL
+            and rel <= PARITY_GRAD_L2 and np.isfinite(rel)):
+        raise AssertionError("parity: the card's f32 step disagrees with the CPU's")
+    return dict(metric_err=worst, grad_rel_l2=rel)
+
+
+def _expected_launches(opt):
+    """Launches of each kernel in one training step of the configuration:
+    kernel D once per branch forward and backward; kernel A forward and dx
+    as `_train_lk_calls`; the plane sweep once per lookup frame."""
+    calls = _train_lk_calls(opt)
+    return {"warp_fwd": 2, "warp_bwd": 2, "ffn_fused": 0,
+            "lk_dwconv": sum(c[4] for c in calls),
+            "lk_dwconv_dx": sum(c[5] for c in calls),
+            "plane_sweep": len(opt.matching_ids) - 1}
+
+
+def train_steps(sd, dev, profile):
+    """The training phase: bf16 compute, B=TRAIN_BATCH, 640x192, on `dev`:
+    one warm-up step and TRAIN_STEPS timed ones, with the launch counts,
+    invariants and depth-bin EMA checked after each."""
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch.core.geometry import disp_to_depth
+
+    opt = TRAIN_B
+    t0 = time.perf_counter()
+    model, state, step = _train_setup(sd, opt, dev.type)
+    print(f"train: state built on the card in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    batch = _train_batch(np.random.RandomState(SEED + 4), TRAIN_BATCH, opt, dev)
+    torch.cuda.synchronize()
+    print(f"train: batch B={TRAIN_BATCH} uploaded in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (outside the timed steps)")
+    named = dict(model.named_parameters())
+    trainable = {n for n, p in named.items() if p.requires_grad}
+    start = {n: p.detach().clone() for n, p in named.items()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers() if "running" in n}
+    had_grad = set()
+    depths = []
+    hook = model.mono_depth.register_forward_hook(
+        lambda m, args, out: depths.append(out[("disp", 0)].detach()))
+    expected = _expected_launches(opt)
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + TRAIN_STEPS):
+        old_bins = (state.min_depth_bin.item(), state.max_depth_bin.item())
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.launch_counts)
+        m = {k: v.item() for k, v in metrics.items()}
+        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss {m['loss']:.6f} "
+              f"(mono {m['mono/loss']:.6f}, multi {m['multi/loss']:.6f}, "
+              f"consistency {m['multi/consistency']:.6f}), {dt:.3f} ms host wall, "
+              f"launches {counts}")
+        if counts != expected:
+            raise AssertionError(f"train: launches {counts}, expected {expected}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train: non-finite metrics {m}")
+        for n in trainable:
+            g = named[n].grad
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"train: non-finite gradient of {n}")
+            if g.abs().max() > 0:
+                had_grad.add(n)
+        _, d = disp_to_depth(depths[-1], opt.min_depth, opt.max_depth)
+        dmin = max(opt.min_depth, d.amin(dim=(1, 2, 3)).mean().item() * 0.9)
+        dmax = d.amax(dim=(1, 2, 3)).mean().item() * 1.1
+        want = (old_bins[0] * 0.99 + dmin * 0.01, old_bins[1] * 0.99 + dmax * 0.01)
+        got = (m["depth_bins/min"], m["depth_bins/max"])
+        if not np.allclose(got, want, rtol=1e-5):
+            raise AssertionError(f"train: depth bins {got}, EMA gives {want}")
+        if i:
+            times.append(dt)
+            losses.append(m["loss"])
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    frozen_changed = [n for n in named if n not in trainable
+                      and not torch.equal(named[n], start[n])]
+    unmoved = [n for n in had_grad if torch.equal(named[n], start[n])]
+    stats_moved = sum(not torch.equal(b, stats0[n])
+                      for n, b in model.named_buffers() if n in stats0)
+    med = float(np.median(times))
+    print(f"train: {len(trainable)} trainable tensors "
+          f"({sum(named[n].numel() for n in trainable)} of "
+          f"{sum(p.numel() for p in named.values())} parameters); "
+          f"{len(trainable) - len(had_grad)} never had a non-zero gradient "
+          f"{sorted(trainable - had_grad)[:8]}; {len(unmoved)} with a gradient "
+          f"did not move; {len(frozen_changed)} frozen tensors changed; "
+          f"{stats_moved} of {len(stats0)} BN running statistics moved")
+    if frozen_changed or unmoved or stats_moved != len(stats0):
+        raise AssertionError(f"train: frozen changed {frozen_changed[:5]}, "
+                             f"unmoved {unmoved[:5]}, stats moved {stats_moved}")
+    print(f"train: depth bins after {1 + TRAIN_STEPS} steps "
+          f"[{state.min_depth_bin.item():.6f}, {state.max_depth_bin.item():.6f}]; "
+          f"loss over the timed steps {[round(v, 6) for v in losses]}, "
+          f"{'fell' if losses[-1] < losses[0] else 'did not fall'}")
+    print(f"train step B={TRAIN_BATCH} 640x192 bf16: median {med:.3f} ms/step "
+          f"({TRAIN_BATCH / med * 1e3:.2f} images/s), all "
+          f"{[round(t, 3) for t in times]} ms; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    if profile:
+        profile_serving("train_step", lambda: step(state, batch), [()])
+    return counts
+
+
 def _category(name):
     n = name.lower()
-    for key, cat in (("lk_dwconv", "kernel A (lk_dwconv)"),
+    for key, cat in (("lk_dwconv", "kernel A (lk_dwconv; forward and dx)"),
                      ("ffn_", "kernel B (ffn_fused + split epilogue)"),
                      ("plane_sweep", "kernel C (plane_sweep)"),
+                     ("warp_fwd_kernel", "kernel D (warp_border; forward and backward)"),
+                     ("warp_bwd_kernel", "kernel D (warp_border; forward and backward)"),
                      ("memcpy htod", "memcpy host -> device"),
                      ("memcpy dtoh", "memcpy device -> host"),
                      ("reflection_pad", "reflection pad (decoder)"),
-                     ("batch_norm", "batch norm (eval)"),
+                     ("batch_norm", "batch norm"), ("bn_fw", "batch norm"),
+                     ("bn_bw", "batch norm"),
+                     ("adam", "Adam update"), ("multi_tensor", "Adam update"),
                      ("upsample", "upsample + cat"), ("catarray", "upsample + cat"),
                      ("reduce", "reductions (cost-volume max/sum/argmin, means)"),
                      ("index", "gather/index"), ("max_pool", "max pool")):
@@ -556,8 +963,9 @@ def _category(name):
 
 
 def profile_serving(tag, fn, requests):
-    """torch.profiler over 5 calls: device time by kernel category, device
-    busy (union of kernel intervals) and the host wall."""
+    """torch.profiler over 5 calls (batches or training steps): device time
+    by kernel category, device busy (union of kernel intervals) and the
+    host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -631,6 +1039,8 @@ def main():
     a = check_lk_dwconv(dev, rng)
     b = check_ffn_fused(dev, rng)
     c = check_plane_sweep(dev, rng)
+    d = check_warp(dev, rng)
+    lk2 = check_lk_train(dev, rng)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -651,28 +1061,38 @@ def main():
     by_path = {"predict_depth": serve_teacher(sess, cpu, opt, requests),
                "predict_depth_multi": serve_student(sess, cpu, opt, requests),
                "predict_pose": serve_pose(sess, cpu, requests)}
-    if "--profile" in sys.argv[1:]:
+    profile = "--profile" in sys.argv[1:]
+    if profile:
         K, invK = _kitti_K(opt.height // 4, opt.width // 4, BATCH)
         profile_serving("predict_depth_multi",
                         lambda img, lk: sess.predict_depth_multi(img, lk, K, invK),
                         requests)
         profile_serving("predict_depth", lambda img, _: sess.predict_depth(img),
                         requests)
+    del sess, cpu
+    train_parity(sd, dev)
+    by_path["train_step"] = train_steps(sd, dev, profile)
 
-    student = by_path["predict_depth_multi"]
     entries = []
-    for kname, src, replaces, res, per in (
+    for kname, src, replaces, res, per, path in (
             ("lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
-             "teacher forward (24 calls)"),
+             "teacher forward (24 calls)", "predict_depth_multi"),
             ("ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
-             "teacher forward (24 calls)"),
+             "teacher forward (24 calls)", "predict_depth_multi"),
             ("plane_sweep", "plane_sweep.cu", "cost_volume_mxu.py:149", c,
-             "call (one per student request)")):
+             "call (one per student request)", "predict_depth_multi"),
+            ("warp_fwd", "warp_border.cu", "warp_mxu.py:269", d["forward"],
+             "call ([24,192,640,3], one per branch)", "train_step"),
+            ("warp_bwd", "warp_border.cu", "warp_mxu.py:269", d["backward"],
+             "call ([24,192,640,3], one per branch)", "train_step"),
+            ("lk_dwconv_dx", "lk_dwconv.cu", "banded_conv.py:152", lk2,
+             "training step, bf16 (100 forward + 96 dx calls of kernel A)",
+             "train_step")):
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",
             "replaces": f"ppeadepth_tpu/kernels/{replaces}",
-            "launches": student[kname], "max_abs_err": res["max_abs_err"],
+            "launches": by_path[path][kname], "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "times_per": per,

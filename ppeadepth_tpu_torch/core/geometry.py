@@ -1,5 +1,7 @@
-"""Camera geometry (JAX counterpart: core/geometry.py): what the serving
-paths need so far. Reference: layers.py:14-100."""
+"""Camera geometry (JAX counterpart: core/geometry.py). Reference:
+layers.py:14-199. Batched over a leading axis, in the JAX order of
+operations; matrix products run in full f32 (TF32 off, torch's default
+for matmuls)."""
 
 from __future__ import annotations
 
@@ -70,3 +72,52 @@ def pixel_grid(height: int, width: int, dtype=torch.float32, device=None):
                             indexing="ij")
     return torch.stack([xs.reshape(-1), ys.reshape(-1),
                         torch.ones(height * width, dtype=dtype, device=device)])
+
+
+def backproject_depth(depth, inv_K):
+    """Depth [B, H, W] or [B, H, W, 1] -> homogeneous camera points
+    [B, 4, H*W] (layers.py:163-168)."""
+    if depth.dim() == 4:
+        depth = depth[..., 0]
+    B, H, W = depth.shape
+    pix = pixel_grid(H, W, depth.dtype, depth.device)
+    cam = torch.einsum("bij,jn->bin", inv_K[:, :3, :3], pix)
+    cam = cam * depth.reshape(B, 1, H * W)
+    return torch.cat([cam, torch.ones_like(cam[:, :1])], 1)
+
+
+def _normalise(pix, height: int, width: int):
+    """Pixel coordinates [B, 2, H*W] -> grid_sample coordinates
+    [B, H, W, 2] (align_corners=True: `(x / (W - 1) - 0.5) * 2`)."""
+    B = pix.shape[0]
+    pix = pix.reshape(B, 2, height, width).permute(0, 2, 3, 1)
+    x = (pix[..., 0] / (width - 1) - 0.5) * 2.0
+    y = (pix[..., 1] / (height - 1) - 0.5) * 2.0
+    return torch.stack([x, y], -1)
+
+
+def project_3d(points, K, T, height: int, width: int, eps: float = 1e-7):
+    """Homogeneous points [B, 4, H*W] seen by camera (K, T) -> normalised
+    sample coordinates [B, H, W, 2] (layers.py:184-199)."""
+    P = (K @ T)[:, :3, :]
+    cam = P @ points
+    pix = cam[:, :2] / (cam[:, 2:3] + eps)
+    return _normalise(pix, height, width)
+
+
+def reproject_coords(depth, inv_K, K, T, eps: float = 1e-7):
+    """Fused backproject -> transform -> project for the inverse warp:
+    depth [B, H, W] or [B, H, W, 1]; inv_K, K, T [B, 4, 4] -> normalised
+    sample coordinates [B, H, W, 2]. Algebraically project_3d of
+    backproject_depth, through one `A = (K T)[:3, :3] inv_K[:3, :3]` per
+    item (JAX `reproject_coords`, the same order of operations)."""
+    if depth.dim() == 4:
+        depth = depth[..., 0]
+    B, H, W = depth.shape
+    pix = pixel_grid(H, W, depth.dtype, depth.device)
+    P = (K @ T)[:, :3, :]
+    A = P[:, :, :3] @ inv_K[:, :3, :3]
+    base = torch.einsum("bij,jn->bin", A, pix)
+    cam = base * depth.reshape(B, 1, H * W) + P[:, :, 3:4]
+    pix2 = cam[:, :2] / (cam[:, 2:3] + eps)
+    return _normalise(pix2, H, W)

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lk_dwconv.cu", "ffn_fused.cu", "plane_sweep.cu")
+SOURCES = ("lk_dwconv.cu", "ffn_fused.cu", "plane_sweep.cu", "warp_border.cu")
 # no --use_fast_math: kernel C's edge mask needs IEEE division and rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,12 +35,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, y, B, H, W, C, K, stream
     "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, out, w1, b1, w2, b2, a1, ab1, a2, ab2, part, M, C, H4, CA,
     # splits, chunks_per_split, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
     # cur, lk, A, t, bins, out, B, H, W, C, D, bf16, stream
     "ppea_plane_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # img, coords, out, N, H, W, C, Ho, Wo, stream
+    "ppea_warp_border_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # img, coords, g, dcoords, N, H, W, C, Ho, Wo, stream
+    "ppea_warp_border_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

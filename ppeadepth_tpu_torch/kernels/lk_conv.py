@@ -4,7 +4,11 @@ Counterparts in the JAX package:
   * `fuse_conv_bn`, `merge_reparam_kernels`: kernels/lk_conv.py:73-107;
   * `depthwise_plain`: kernels/lk_conv.py `_depthwise_lax`;
   * `lk_depthwise` (wrapper of csrc/lk_dwconv.cu): kernels/banded_conv.py
-    `banded_depthwise`, the TPU kernel of the merged deploy convs.
+    `banded_depthwise`, the TPU kernel of the merged deploy convs;
+  * `lk_depthwise_train`: kernels/banded_conv.py `banded_depthwise_train`
+    (:152, custom VJP :169-188), the differentiable training conv: forward
+    and d/dx are kernel A (d/dx on the spatially flipped kernel), d/dw is
+    torch's conv weight gradient, as JAX takes the lax pullback for it.
 
 Layout: activations are NCHW tensors in torch.channels_last memory (NHWC
 bytes), weights torch's depthwise [C, 1, k, k].
@@ -64,8 +68,7 @@ def _validate(x, w, b):
                          f"k <= {MAX_K}, got {tuple(w.shape)}")
     if b is not None and b.shape != (C,):
         raise ValueError(f"lk_depthwise: bias must be [{C}], got {tuple(b.shape)}")
-    allowed = ((torch.bfloat16,) if x.is_cuda
-               else (torch.bfloat16, torch.float32))
+    allowed = (torch.bfloat16, torch.float32)
     for name, t in (("x", x), ("w", w), ("bias", b)):
         if t is None:
             continue
@@ -81,22 +84,72 @@ def _validate(x, w, b):
     return B, C, H, W, k
 
 
+_ENTRY = {torch.bfloat16: "ppea_lk_dwconv_bf16", torch.float32: "ppea_lk_dwconv_f32"}
+
+
+def _launch(x, w, b, counter: str):
+    """Kernel A on validated CUDA tensors; counts the launch under
+    `counter`."""
+    B, C, H, W = x.shape
+    if x.data_ptr() % 16:
+        raise ValueError("lk_depthwise: x must be 16-byte aligned")
+    y = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
+    entry = _ENTRY[x.dtype]
+    err = getattr(library(), entry)(
+        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
+        y.data_ptr(), B, H, W, C, w.shape[-1],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, entry)
+    launch_counts[counter] += 1
+    return y.permute(0, 3, 1, 2)
+
+
 def lk_depthwise(x, w, b: Optional[torch.Tensor] = None):
     """SAME stride-1 depthwise conv `x * w (+ b)`.
 
     x: [B, C, H, W] channels_last; w: [C, 1, k, k] (odd k <= 31); b: [C] or
-    None. CPU tensors take `depthwise_plain`; CUDA tensors (bf16 only)
-    launch csrc/lk_dwconv.cu."""
-    B, C, H, W, k = _validate(x, w, b)
+    None; all bf16 or all f32. CPU tensors take `depthwise_plain`; CUDA
+    tensors launch csrc/lk_dwconv.cu."""
+    _validate(x, w, b)
     if not x.is_cuda:
         return depthwise_plain(x, w, b)
-    if x.data_ptr() % 16:
-        raise ValueError("lk_depthwise: x must be 16-byte aligned")
-    y = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
-    err = library().ppea_lk_dwconv_bf16(
-        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), B, H, W, C, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "ppea_lk_dwconv_bf16")
-    launch_counts["lk_dwconv"] += 1
-    return y.permute(0, 3, 1, 2)
+    return _launch(x, w, b, "lk_dwconv")
+
+
+def _input_grad(g, w):
+    """d/dx of the SAME conv: the same conv of the output gradient with the
+    spatially flipped kernel (banded_conv.py:173-178). Autograd's gradient
+    need not be channels_last: the copy to it is part of this step."""
+    g = g.contiguous(memory_format=torch.channels_last)
+    wf = w.flip(-1, -2).contiguous()
+    _validate(g, wf, None)
+    if not g.is_cuda:
+        return depthwise_plain(g, wf)
+    return _launch(g, wf, None, "lk_dwconv_dx")
+
+
+class _LKDepthwiseTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
+        return lk_depthwise(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = _input_grad(g, w) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            k = w.shape[-1]
+            dw = torch.nn.grad.conv2d_weight(x, w.shape, g, padding=k // 2,
+                                             groups=x.shape[1])
+        return dx, dw
+
+
+def lk_depthwise_train(x, w):
+    """Differentiable SAME stride-1 depthwise conv without bias (the
+    training form's large and small kernels). Forward: `lk_depthwise`;
+    d/dx: kernel A on the flipped kernel (`lk_dwconv_dx` launches on a
+    card, `depthwise_plain` on the CPU); d/dw only when `w` requires grad,
+    by torch's conv weight gradient. Inputs as `lk_depthwise`."""
+    return _LKDepthwiseTrain.apply(x, w)

@@ -4,7 +4,7 @@ models/depth_decoder.py; reference depth_decoder_v2.py:83-245).
 Five up-stages (the first four take encoder skips feats[2-i], the fifth
 none), nearest 2x upsampling, reflection-padded ConvBlocks, and one
 Conv3x3 + sigmoid disparity head at full resolution that always computes in
-float32, as the JAX head does (depth_decoder.py:76).
+float32 (autocast off), as the JAX head does (depth_decoder.py:76).
 """
 
 from __future__ import annotations
@@ -51,5 +51,6 @@ class DepthDecoderV2(nn.Module):
         x = upsample2x_nearest(self.upconvs_0[4](x))
         x = self.upconvs_1[4](x)
         head = self.disp_convs[0]
-        disp = torch.sigmoid(head(x.to(head.conv.weight.dtype)))
+        with torch.autocast(x.device.type, enabled=False):
+            disp = torch.sigmoid(head(x.to(head.conv.weight.dtype)))
         return {("disp", 0): disp}

@@ -11,8 +11,10 @@ spliced in after stage 0 (JAX counterpart: models/matching_encoder.py
                   (`reduce_conv`)
   resume        = transitions + stages 1..3 for the 4-level pyramid
 
-Inference only. The DynamicDepth variant of the cost volume (`dyn`) is not
-ported.
+In training the lookup features are gradient-free (computed under
+`torch.no_grad()`, BN statistics still updated, replk_matching.py:265-281)
+and the cost volume is built on detached f32 features. The DynamicDepth
+variant of the cost volume (`dyn`) is not ported.
 """
 
 from __future__ import annotations
@@ -29,40 +31,48 @@ class RepLKMatching(nn.Module):
                  g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
                  trans_adpt: bool = False, input_adpt: bool = False,
                  merged: bool = False, num_depth_bins: int = 96,
-                 depth_binning: str = "log"):
+                 depth_binning: str = "log", drop_path_rate: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.replk = RepLKNet(
             rep_size=rep_size, adpt_test=adpt_test, g_blk=g_blk, g_ffn=g_ffn,
             ratio=ratio, trans_adpt=trans_adpt, input_adpt=input_adpt,
-            merged=merged)
+            merged=merged, drop_path_rate=drop_path_rate,
+            use_checkpoint=use_checkpoint)
         c0 = self.replk.stem[0].conv.out_channels
         self.reduce_conv = nn.Sequential(
             nn.Conv2d(c0 + num_depth_bins, c0, 3, padding=1), nn.ReLU())
         self.num_depth_bins = num_depth_bins
         self.depth_binning = depth_binning
 
-    def feature_extraction(self, image):
+    def feature_extraction(self, image, generator=None):
         """stem + stage 0 -> features at 1/4 resolution."""
-        return self.replk.forward_stage(0, self.replk.forward_stem(image))
+        return self.replk.forward_stage(0, self.replk.forward_stem(image),
+                                        generator)
 
     def forward(self, current_image, lookup_images, poses, K, invK,
-                min_depth_bin, max_depth_bin):
+                min_depth_bin, max_depth_bin, generator=None):
         """current_image: [B, 3, H, W]; lookup_images: [B, F, 3, H, W];
         poses: [B, F, 4, 4] current->lookup; K, invK: [B, 4, 4] at 1/4
-        (matching) scale; min/max_depth_bin: scalars.
+        (matching) scale; min/max_depth_bin: scalars or 0-d tensors;
+        generator: draws the drop-path masks in training.
 
         Returns (features[4], lowest_cost [B, H/4, W/4],
         confidence [B, H/4, W/4])."""
         B, F_ = lookup_images.shape[:2]
-        cur = self.feature_extraction(current_image)
-        lk = self.feature_extraction(lookup_images.flatten(0, 1))
-        lk = lk.reshape(B, F_, *lk.shape[1:])
-        bins = CV.compute_depth_bins(min_depth_bin, max_depth_bin,
-                                     self.num_depth_bins, self.depth_binning,
-                                     device=cur.device)
-        cost, missing = CV.plane_sweep_cost_volume(cur, lk, poses, K, invK, bins)
-        conf = CV.confidence_mask(cost, missing)
-        lowest_cost = CV.lowest_cost_disparity(cost, bins)
+        cur = self.feature_extraction(current_image, generator)
+        with torch.no_grad():
+            lk = self.feature_extraction(lookup_images.flatten(0, 1), generator)
+            lk = lk.reshape(B, F_, *lk.shape[1:])
+            # f32 geometry: outside any bf16 autocast region
+            with torch.autocast(cur.device.type, enabled=False):
+                bins = CV.compute_depth_bins(
+                    min_depth_bin, max_depth_bin, self.num_depth_bins,
+                    self.depth_binning, device=cur.device)
+                cost, missing = CV.plane_sweep_cost_volume(
+                    cur.detach(), lk, poses.detach(), K, invK, bins)
+                conf = CV.confidence_mask(cost, missing)
+                lowest_cost = CV.lowest_cost_disparity(cost, bins)
 
         x = torch.cat([cur, (cost * conf[:, None]).to(cur.dtype)], 1)
         x = self.reduce_conv(x.to(dtype=self.reduce_conv[0].weight.dtype,
@@ -70,6 +80,6 @@ class RepLKMatching(nn.Module):
         features = [cur]
         for i in range(1, 4):
             x = self.replk.forward_transition(i - 1, x)
-            x = self.replk.forward_stage(i, x)
+            x = self.replk.forward_stage(i, x, generator)
             features.append(x)
         return features, lowest_cost, conf

@@ -6,23 +6,29 @@ replknet_adapter.py:381-644).
   4 stages of num_blocks x (RepLKBlock, ConvFFN) pairs
   transitions: conv1x1 + dw3x3 s2 between stages
 
-Inference only: drop-path is the identity and BN runs on running stats.
-The merged (deploy) form holds one biased large-kernel conv per block
-(`lkb_reparam`, kernel A); after `RepLKNet.fold_ffn` every ConvFFN runs as
-kernel B on operands folded once.
+Training form: per-block drop-path on the linear schedule
+`np.linspace(0, rate, sum(layers))` (block pair i of the network takes
+entry i, replknet.py:239), BN in train mode, and with `use_checkpoint` each
+block recomputed in the backward pass by `torch.utils.checkpoint` (the
+JAX `nn.remat`, replknet.py:197-203). The merged (deploy) form holds one
+biased large-kernel conv per block (`lkb_reparam`, kernel A); after
+`RepLKNet.fold_ffn` every ConvFFN runs as kernel B on operands folded once.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ffn_fused import FoldedFFN, ffn_fused, fold_ffn_params
 from .adapters import BAdapter, ChannelAdapter
-from .blocks import ConvBN, DepthwiseConv
+from .blocks import ConvBN, DepthwiseConv, DropPath
 
 REPLK_CONFIGS = {
     "b": dict(
@@ -96,7 +102,7 @@ class RepLKBlock(nn.Module):
     def __init__(self, channels: int, dw_channels: int, lk_size: int,
                  small_kernel: Optional[int], adpt_test: int = -1,
                  g_blk: float = 1.0, ratio: float = 0.25,
-                 merged: bool = False):
+                 merged: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.prelkb_bn = nn.BatchNorm2d(channels, eps=1e-5)
         self.adapter = (BAdapter(channels, adpt_test, ratio)
@@ -105,13 +111,14 @@ class RepLKBlock(nn.Module):
         self.large_kernel = ReparamLKConv(dw_channels, lk_size, small_kernel,
                                           merged)
         self.pw2 = ConvBN(dw_channels, channels, 1)
+        self.drop_path = DropPath(drop_path)
         self.g_blk = g_blk
 
-    def forward(self, x):
+    def forward(self, x, drop_mask=None):
         out = self.prelkb_bn(x)
         adpt = self.adapter(out) if self.adapter is not None else None
         out = self.pw2(F.relu(self.large_kernel(self.pw1(out))))
-        res = x + out
+        res = x + self.drop_path(out, drop_mask)
         if adpt is not None:
             res = res + self.g_blk * adpt
         return res
@@ -129,7 +136,8 @@ class ConvFFN(nn.Module):
     block runs as `kernels.ffn_fused.ffn_fused`."""
 
     def __init__(self, channels: int, internal_channels: int,
-                 adpt_test: int = -1, g_ffn: float = 1.0):
+                 adpt_test: int = -1, g_ffn: float = 1.0,
+                 drop_path: float = 0.0):
         super().__init__()
         self.preffn_bn = nn.BatchNorm2d(channels, eps=1e-5)
         self.mlp_adapter = None
@@ -140,6 +148,7 @@ class ConvFFN(nn.Module):
                 channels, 0.5 if adpt_test == 2 else 0.25)
         self.pw1 = ConvBN(channels, internal_channels, 1)
         self.pw2 = ConvBN(internal_channels, channels, 1)
+        self.drop_path = DropPath(drop_path)
         self.g_ffn = g_ffn
         for name in _FOLDED:
             self.register_buffer("folded_" + name, None, persistent=False)
@@ -150,14 +159,14 @@ class ConvFFN(nn.Module):
         for name, t in p._asdict().items():
             setattr(self, "folded_" + name, t)
 
-    def forward(self, x):
+    def forward(self, x, drop_mask=None):
         if self.folded_w1 is not None:
             return ffn_fused(x, FoldedFFN(
                 *(getattr(self, "folded_" + n) for n in _FOLDED)))
         out = self.preffn_bn(x)
         adpt = self.mlp_adapter(out) if self.mlp_adapter is not None else None
         out = self.pw2(F.gelu(self.pw1(out)))
-        res = x + out
+        res = x + self.drop_path(out, drop_mask)
         if adpt is not None:
             res = res + self.g_ffn * adpt
         return res
@@ -173,26 +182,59 @@ def _route_adpt(adpt_test: int):
     return adpt_test, adpt_test
 
 
+@contextlib.contextmanager
+def _running_stats_held(module: nn.Module):
+    """Momentum 0 for every BN of `module` inside the block, and its batch
+    counter restored after: a recompute under activation checkpointing
+    leaves the running statistics as the first forward set them, as flax's
+    remat discards the recompute's updates."""
+    bns = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    try:
+        yield
+    finally:
+        for m, (mom, count) in zip(bns, saved):
+            m.momentum = mom
+            m.num_batches_tracked.copy_(count)
+
+
 class RepLKNetStage(nn.Module):
     def __init__(self, channels: int, num_blocks: int, lk_size: int,
                  small_kernel: Optional[int], dw_ratio: float = 1.0,
                  ffn_ratio: float = 4.0, adpt_test: int = -1,
                  g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
-                 merged: bool = False):
+                 merged: bool = False, drop_paths: Sequence[float] = (),
+                 use_checkpoint: bool = False):
         super().__init__()
         adpt_r, adpt_c = _route_adpt(adpt_test)
+        drop_paths = list(drop_paths) or [0.0] * num_blocks
         blocks = []
-        for _ in range(num_blocks):
+        for i in range(num_blocks):
             blocks.append(RepLKBlock(
                 channels, int(channels * dw_ratio), lk_size, small_kernel,
-                adpt_test=adpt_r, g_blk=g_blk, ratio=ratio, merged=merged))
+                adpt_test=adpt_r, g_blk=g_blk, ratio=ratio, merged=merged,
+                drop_path=drop_paths[i]))
             blocks.append(ConvFFN(channels, int(channels * ffn_ratio),
-                                  adpt_test=adpt_c, g_ffn=g_ffn))
+                                  adpt_test=adpt_c, g_ffn=g_ffn,
+                                  drop_path=drop_paths[i]))
         self.blocks = nn.ModuleList(blocks)
+        self.use_checkpoint = use_checkpoint
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """`generator` draws the drop-path masks (None: torch's default
+        generator); each is drawn before its block, outside the
+        checkpointed function."""
         for blk in self.blocks:
-            x = blk(x)
+            mask = blk.drop_path.draw(x, generator)
+            if self.use_checkpoint and torch.is_grad_enabled():
+                x = checkpoint(blk, x, mask, use_reentrant=False,
+                               context_fn=lambda blk=blk: (
+                                   contextlib.nullcontext(),
+                                   _running_stats_held(blk)))
+            else:
+                x = blk(x, mask)
         return x
 
 
@@ -213,7 +255,8 @@ class RepLKNet(nn.Module):
                  in_channels: int = 3, adpt_test: int = -1,
                  g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
                  trans_adpt: bool = False, input_adpt: bool = False,
-                 merged: bool = False):
+                 merged: bool = False, drop_path_rate: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         if trans_adpt or input_adpt:
             raise NotImplementedError(
@@ -221,6 +264,7 @@ class RepLKNet(nn.Module):
                 "not ported yet")
         cfg = REPLK_CONFIGS[rep_size]
         channels = cfg["channels"]
+        layers = cfg["layers"]
         base = channels[0]
         self.stem = nn.ModuleList([
             ConvBN(in_channels, base, 3, stride=2, relu=True),
@@ -228,12 +272,15 @@ class RepLKNet(nn.Module):
             ConvBN(base, base, 1, relu=True),
             ConvBN(base, base, 3, stride=2, groups=base, relu=True),
         ])
+        dpr = np.linspace(0.0, drop_path_rate, sum(layers)).tolist()
         self.stages = nn.ModuleList([
             RepLKNetStage(
-                channels[i], cfg["layers"][i], cfg["large_kernel_sizes"][i],
+                channels[i], layers[i], cfg["large_kernel_sizes"][i],
                 cfg["small_kernel"], dw_ratio=cfg["dw_ratio"],
                 ffn_ratio=ffn_ratio, adpt_test=adpt_test, g_blk=g_blk,
-                g_ffn=g_ffn, ratio=ratio, merged=merged)
+                g_ffn=g_ffn, ratio=ratio, merged=merged,
+                drop_paths=dpr[sum(layers[:i]):sum(layers[:i + 1])],
+                use_checkpoint=use_checkpoint)
             for i in range(4)
         ])
         self.transitions = nn.ModuleList([
@@ -259,18 +306,19 @@ class RepLKNet(nn.Module):
             x = layer(x)
         return x
 
-    def forward_stage(self, idx: int, x):
-        return self.stages[idx](x)
+    def forward_stage(self, idx: int, x, generator=None):
+        return self.stages[idx](x, generator)
 
     def forward_transition(self, idx: int, x):
         return self.transitions[idx](x)
 
-    def forward(self, x):
-        """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32]."""
+    def forward(self, x, generator=None):
+        """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32].
+        `generator` draws the drop-path masks in training."""
         x = self.forward_stem(x)
         feats = []
         for i in range(4):
-            x = self.forward_stage(i, x)
+            x = self.forward_stage(i, x, generator)
             feats.append(x)
             if i < 3:
                 x = self.forward_transition(i, x)

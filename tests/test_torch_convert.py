@@ -14,8 +14,8 @@ from ppeadepth_tpu_torch.ckpt.convert import (
     state_dict_from_jax, torch_module_name)
 from ppeadepth_tpu_torch.ckpt.deploy import structural_reparam
 from ppeadepth_tpu_torch.models import RepDepth
-from tests.test_torch_student import jax_repdepth
-from tests.torch_parity import TINY
+from tests.torch_parity import TINY, jax_repdepth
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

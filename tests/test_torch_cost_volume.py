@@ -25,6 +25,7 @@ from ppeadepth_tpu.ops import cost_volume as JCV
 from ppeadepth_tpu_torch import kernels
 from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 from ppeadepth_tpu_torch.ops import cost_volume as CV
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W, C, D = 2, 16, 32, 16, 32
 NEAR = 1e-4  # px: a sample this close to an edge-mask boundary may flip

@@ -1,7 +1,9 @@
 """Port kernels on the card: each hand-written CUDA kernel against its plain
 PyTorch version, at the B=8 640x192 shapes of RepLKNet-31B (the stages of
-kernels A and B, the student's plane sweep for kernel C) and at ragged
-edge shapes.
+kernels A and B, the student's plane sweep for kernel C), at the training
+step's shapes (kernel A in f32 and as kernel #2's forward and dx, kernel
+D's photometric warp and its coordinate gradient) and at ragged edge
+shapes.
 
 Marked `gpu`; every test skips without a CUDA device. Run on a card with
 `python -m pytest -m gpu tests/test_torch_gpu_kernels.py -q`.
@@ -19,7 +21,9 @@ from ppeadepth_tpu_torch import kernels
 from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 from ppeadepth_tpu_torch.kernels.ffn_fused import (
     FoldedFFN, ffn_fused, ffn_fused_plain)
-from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
+from ppeadepth_tpu_torch.kernels.lk_conv import (
+    depthwise_plain, lk_depthwise, lk_depthwise_train)
+from ppeadepth_tpu_torch.kernels.warp import warp_border, warp_border_plain
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
 from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
 
@@ -109,10 +113,70 @@ def test_ffn_fused_matches_plain(cuda, C, M, adapter):
 
 
 def test_wrappers_raise_on_cuda_float32(cuda):
+    """Kernel A takes f32 now, but only with f32 weights: a mixed pair
+    raises instead of falling back."""
     x = torch.zeros(1, 32, 4, 4, device=cuda).to(memory_format=torch.channels_last)
-    w = torch.zeros(32, 1, 3, 3, device=cuda)
+    w = torch.zeros(32, 1, 3, 3, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         lk_depthwise(x, w)
+    with pytest.raises(TypeError):
+        lk_depthwise(x.half(), w.half())
+
+
+def _t(rng, shape, scale, device, dtype):
+    return torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(device).to(dtype)
+
+
+@pytest.mark.parametrize("C,H,W,k", [*(s for s in STAGES), (20, 9, 21, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lk_train_matches_plain(cuda, dtype, C, H, W, k):
+    """Kernel #2: forward (kernel A, no bias) and d/dx (kernel A on the
+    flipped kernel) through the autograd Function, at the training stage
+    shapes (B=2) and a ragged one. bf16 as kernel A's test; f32 within
+    1e-4 of the peak (f32 summation order over up to 961 taps)."""
+    rng = np.random.RandomState(k)
+    x = _t(rng, (2, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
+    g = _t(rng, (2, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
+    w = _t(rng, (C, 1, k, k), 1.0 / k, cuda, dtype)
+    x.requires_grad_(True)
+    n0 = dict(kernels.launch_counts)
+    y = lk_depthwise_train(x, w)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["lk_dwconv"] == n0["lk_dwconv"] + 1
+    assert kernels.launch_counts["lk_dwconv_dx"] == n0["lk_dwconv_dx"] + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, ref in ((y, depthwise_plain(x.detach().float(), w.float())),
+                     (x.grad, depthwise_plain(g.float(), w.flip(-1, -2).float()))):
+        assert got.dtype == dtype
+        err = (got.float() - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("N,H,W", [(24, 192, 640), (3, 7, 13)])
+def test_warp_border_matches_plain(cuda, N, H, W):
+    """Kernel D forward within 1e-5 (images in [0, 1]) and its coordinate
+    gradient within 1e-5 of the peak, against the plain version's autograd,
+    at one branch's training warp and a ragged shape, with coordinates
+    beyond the borders."""
+    rng = np.random.RandomState(N)
+    img = torch.from_numpy(rng.rand(N, H, W, 3).astype(np.float32)).to(cuda)
+    coords = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, H, W, 2)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(N, H, W, 3).astype(np.float32)).to(cuda)
+    n0 = dict(kernels.launch_counts)
+    c = coords.clone().requires_grad_(True)
+    out = warp_border(img, c)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["warp_fwd"] == n0["warp_fwd"] + 1
+    assert kernels.launch_counts["warp_bwd"] == n0["warp_bwd"] + 1
+    cp = coords.clone().requires_grad_(True)
+    ref = warp_border_plain(img, cp)
+    ref.backward(g)
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (c.grad - cp.grad).abs().max().item() <= 1e-5 * cp.grad.abs().max().item()
 
 
 def _sweep_inputs(rng, B, C, H, W, D, dtype, device, zero_pose=False):

@@ -19,6 +19,7 @@ from ppeadepth_tpu_torch.kernels.ffn_fused import (
     FoldedFFN, ffn_fused, ffn_fused_plain, fold_ffn_params, hidden_splits)
 from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
 from tests.torch_parity import nhwc_to_torch, perturb, torch_to_nhwc
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("bias", [False, True])

@@ -4,7 +4,6 @@ kernel-B operands (the deploy path, here through the plain versions),
 DepthDecoderV2, and the nearest resizes. atol 2e-4 as tests/test_banded_conv.py:209 (f32 summation
 order through the tiny net)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,14 +19,17 @@ from ppeadepth_tpu_torch.models.depth_decoder import DepthDecoderV2
 from ppeadepth_tpu_torch.models.replknet import RepLKNet, num_ch_enc
 from ppeadepth_tpu_torch.ops.resize import resize_nearest, upsample2x_nearest
 from tests.torch_parity import (
-    TINY, jax_teacher, nhwc_to_torch, strip, torch_to_nhwc)
+    TINY, compile_reference, jax_repdepth, nhwc_to_torch, strip, torch_to_nhwc)
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 
 
 @pytest.fixture(scope="module")
 def teacher():
-    return jax_teacher()
+    """The whole JAX tree; these tests read its teacher (mono_encoder,
+    mono_depth)."""
+    return jax_repdepth()
 
 
 @pytest.mark.parametrize("form", ["train", "merged", "folded"])
@@ -39,9 +41,8 @@ def test_replknet_matches_jax(teacher, form):
     x = np.random.RandomState(3).rand(B, TINY.height, TINY.width, 3).astype(
         np.float32)
     jmodel = JRepLKNet(rep_size="t", adpt_test=4, merged=merged)
-    ref = jax.jit(lambda v, x: jmodel.apply(v, x, False))(
-        {"params": params["mono_encoder"],
-         "batch_stats": stats["mono_encoder"]}, jnp.asarray(x))
+    v = {"params": params["mono_encoder"], "batch_stats": stats["mono_encoder"]}
+    ref = compile_reference(lambda v, x: jmodel.apply(v, x, False), v, x)(v, x)
 
     model = RepLKNet("t", adpt_test=4, merged=merged).eval()
     model.load_state_dict(
@@ -63,8 +64,9 @@ def test_decoder_matches_jax(teacher):
     rng = np.random.RandomState(4)
     feats = [rng.rand(B, TINY.height // 4 >> i, TINY.width // 4 >> i,
                       ch[i]).astype(np.float32) for i in range(4)]
-    ref = JDecoder(ch).apply({"params": params["mono_depth"]},
-                             [jnp.asarray(f) for f in feats])[("disp", 0)]
+    v = {"params": params["mono_depth"]}
+    ref = compile_reference(lambda v, f: JDecoder(ch).apply(v, f)[("disp", 0)],
+                            v, feats)(v, feats)
     model = DepthDecoderV2(ch).eval()
     model.load_state_dict(
         strip(state_dict_from_jax(params, {}), "mono_depth"), strict=True)

@@ -3,11 +3,11 @@ deploy forward (the body of ppeadepth_tpu/serve.py:109-126) on the same
 merged weights of the whole RepDepth, the port's freedom from jax, and
 chip_smoke.py refusing to run without a card."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +18,8 @@ from ppeadepth_tpu.core.geometry import disp_to_depth
 from ppeadepth_tpu.models import RepDepth as JRepDepth
 from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.serve import InferenceSession
-from tests.test_torch_student import jax_repdepth
-from tests.torch_parity import TINY
+from tests.torch_parity import TINY, compile_reference, jax_repdepth
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -37,12 +37,17 @@ def test_predict_depth_matches_jax():
     mp, ms = jax_reparam(params, stats)
     model = JRepDepth(TINY.replace(merged=True))
 
-    @jax.jit
-    def jax_predict(img):
-        out = model.apply({"params": mp, "batch_stats": ms}, img, False,
-                          method=JRepDepth.forward_mono)
+    def predict(v, img):
+        out = model.apply(v, img, False, method=JRepDepth.forward_mono)
         return disp_to_depth(out[("disp", 0)][..., 0], TINY.min_depth,
                              TINY.max_depth)[1]
+
+    v = {"params": mp, "batch_stats": ms}
+    x = jnp.zeros((2, TINY.height, TINY.width, 3), jnp.float32)
+    compiled = compile_reference(predict, v, x)
+
+    def jax_predict(img):
+        return compiled(v, img)
 
     sd = state_dict_from_jax(params, stats)
     sess = InferenceSession(TINY, sd, device="cpu", dtype="float32")
@@ -84,30 +89,60 @@ def test_session_bfloat16_cpu_close_to_float32():
 
 
 _NO_JAX = """
+import importlib
+import pkgutil
 import sys
 from types import SimpleNamespace
+
 import numpy as np
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ppeadepth_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+sys.meta_path.insert(0, Block())
+import ppeadepth_tpu_torch
+for info in pkgutil.walk_packages(ppeadepth_tpu_torch.__path__, "ppeadepth_tpu_torch."):
+    importlib.import_module(info.name)
+import chip_smoke
 from ppeadepth_tpu_torch.serve import InferenceSession
-opt = SimpleNamespace(adapter=True, rep_size="t", adpt_test=4, ratio=0.25,
-                      g_blk=1.0, g_ffn=1.0, trans=False, input=False,
-                      mono_trans=False, mono_input=False, dc=False,
-                      dyn_cv=False, num_depth_bins=96, depth_binning="log",
-                      height=64, width=96, min_depth=0.1, max_depth=100.0)
+from ppeadepth_tpu_torch.models import RepDepth, init_weights
+from ppeadepth_tpu_torch.train.schedule import make_optimizer
+from ppeadepth_tpu_torch.train.step import create_train_state, make_train_step
+import torch
+
+opt = SimpleNamespace(**{**vars(chip_smoke.TRAIN_B), "rep_size": "t",
+                         "height": 64, "width": 96, "compute_dtype": "float32"})
 d = InferenceSession(opt, device="cpu", dtype="float32").predict_depth(
     np.zeros((1, 64, 96, 3), np.float32))
 assert d.shape == (1, 64, 96)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ppeadepth_tpu"))
+model = RepDepth(opt)
+init_weights(model, torch.Generator().manual_seed(0))
+state = create_train_state(model, opt, device="cpu")
+step = make_train_step(model, opt, *make_optimizer(
+    [p for p in model.parameters() if p.requires_grad], 1e-4, 10))
+state, metrics = step(state, chip_smoke._train_batch(np.random.RandomState(0), 2, opt))
+assert np.isfinite(metrics["loss"].item()) and state.step == 1
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("IMPORTED", bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter serving on the CPU loads nothing of jax, flax or
-    the JAX package."""
+    """A fresh interpreter that cannot import jax, flax, optax or the JAX
+    package imports every module of the port and chip_smoke.py, serves on
+    the CPU and takes a training step."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED []" in proc.stdout
 

@@ -6,11 +6,11 @@ disparity, confidence), and `InferenceSession.predict_depth_multi` /
 and unmerged, on the same converted weights; and the student path's
 freedom from jax.
 
-`jax_repdepth` draws the whole JAX RepDepth tree from a numpy seed over the
-shapes of its init (jax.eval_shape, no compile); the port's other test
-files import it.
+The whole JAX RepDepth tree comes from `tests.torch_parity.jax_repdepth`
+(a numpy seed over the shapes of its init, no compile).
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,47 +27,18 @@ from ppeadepth_tpu.core.geometry import (
 from ppeadepth_tpu.models import RepDepth as JRepDepth
 from ppeadepth_tpu.models.pose import PoseDecoder as JPoseDecoder
 from ppeadepth_tpu.models.resnet import ResnetEncoder as JResnetEncoder
-from ppeadepth_tpu.train.trainer import synthetic_batch
 from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.core.geometry import transformation_from_parameters
 from ppeadepth_tpu_torch.models.pose import PoseDecoder
 from ppeadepth_tpu_torch.models.resnet import ResnetEncoder
 from ppeadepth_tpu_torch.serve import InferenceSession
-from tests.torch_parity import TINY, nhwc_to_torch, strip, torch_to_nhwc
+from tests.torch_parity import (
+    TINY, compile_reference, jax_repdepth, nhwc_to_torch, strip, torch_to_nhwc)
+from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B = 2
 ATOL = 2e-4  # f32 summation order through the tiny net, as the teacher tests
-
-
-def jax_repdepth(opt=TINY, seed=0):
-    """(params, batch_stats) of the whole JAX RepDepth (student, teacher and
-    pose nets) as numpy: LeCun-normal kernels, and biases, BN scales and
-    statistics, and adapter D_fc2 kernels drawn away from their zero or
-    identity init so folding and adapter bugs cannot hide."""
-    shapes = jax.eval_shape(lambda: JRepDepth(opt).init(
-        {"params": jax.random.PRNGKey(0), "droppath": jax.random.PRNGKey(1),
-         "aug": jax.random.PRNGKey(2)},
-        synthetic_batch(opt, 1), 0.1, 10.0, False))
-    rng = np.random.RandomState(seed)
-
-    def draw(path, leaf):
-        name, shape = path[-1].key, leaf.shape
-        if name == "kernel":
-            scale = (0.05 if any(p.key == "D_fc2" for p in path)
-                     else np.prod(shape[:-1]) ** -0.5)
-            return (rng.randn(*shape) * scale).astype(np.float32)
-        if name == "scale":
-            return (1 + 0.1 * rng.randn(*shape)).astype(np.float32)
-        if name in ("bias", "mean"):
-            return (0.05 * rng.randn(*shape)).astype(np.float32)
-        assert name == "var", name
-        return (rng.rand(*shape) * 0.4 + 0.8).astype(np.float32)
-
-    def tree(t):
-        return jax.tree_util.tree_map_with_path(draw, t)
-
-    return tree(shapes["params"]), tree(shapes["batch_stats"])
 
 
 def rel_pose(axisangle, translation, batch=B):
@@ -112,7 +83,6 @@ def _jax_student(variables, opt, img, lk, K, invK):
     net's raw output and the encoder's outputs at T_GIVEN."""
     model = JRepDepth(opt)
 
-    @jax.jit
     def fn(v, img, lk, K2, invK2, T_given):
         feats = model.apply(v, jnp.concatenate([lk, img], -1), False,
                             method=lambda m, x, t: m.pose_encoder(x, t))
@@ -128,8 +98,8 @@ def _jax_student(variables, opt, img, lk, K, invK):
                           method=lambda m, *a: m.encoder(*a))
         return depth, conf, aa, tt, enc
 
-    return jax.tree_util.tree_map(np.asarray, fn(
-        variables, img, lk, K, invK, jnp.asarray(T_GIVEN)))
+    args = (variables, img, lk, K, invK, jnp.asarray(T_GIVEN))
+    return jax.tree_util.tree_map(np.asarray, compile_reference(fn, *args)(*args))
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["merged", "unmerged"])
@@ -172,11 +142,16 @@ def test_pose_nets_match_jax(whole):
     sd = state_dict_from_jax(params, stats)
     x = np.random.RandomState(4).rand(B, TINY.height, TINY.width, 6).astype(
         np.float32)
-    jfeats = JResnetEncoder(18, 2).apply(
-        {"params": params["pose_encoder"],
-         "batch_stats": stats["pose_encoder"]}, jnp.asarray(x), False)
-    jaa, jtt = JPoseDecoder(JResnetEncoder(18, 2).num_ch_enc, 1, 2).apply(
-        {"params": params["pose"]}, [jfeats])
+
+    def nets(v, x):
+        feats = JResnetEncoder(18, 2).apply(v["enc"], x, False)
+        return feats, JPoseDecoder(JResnetEncoder(18, 2).num_ch_enc, 1, 2).apply(
+            v["dec"], [feats])
+
+    v = {"enc": {"params": params["pose_encoder"],
+                 "batch_stats": stats["pose_encoder"]},
+         "dec": {"params": params["pose"]}}
+    jfeats, (jaa, jtt) = compile_reference(nets, v, x)(v, x)
     enc = ResnetEncoder(18, 2).eval()
     enc.load_state_dict(strip(sd, "pose_encoder"), strict=True)
     dec = PoseDecoder(enc.num_ch_enc, 2).eval()
@@ -299,6 +274,7 @@ def test_student_path_imports_no_jax():
     """A fresh interpreter serving the student on the CPU loads nothing of
     jax, flax or the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED []" in proc.stdout

@@ -3,19 +3,37 @@
 Inputs and weights come from numpy seeds and pass between JAX and torch as
 numpy arrays. `perturb` randomises what initialisation leaves at zero or
 identity (adapter `D_fc2`, BN statistics) so folding and adapter bugs
-cannot hide, as tests/test_ffn_mxu.py:27-46 does.
+cannot hide, as tests/test_ffn_mxu.py:27-46 does. `jax_repdepth` draws the
+whole JAX RepDepth tree once per process; `compile_reference` compiles a
+JAX reference function with XLA's cheaper backend settings.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ppeadepth_tpu.models import RepDepth
 from ppeadepth_tpu.options import Config
+from ppeadepth_tpu.train.trainer import synthetic_batch
 
 # the tiny teacher the port's parity tests share
 TINY = Config(adapter=True, rep_size="t", height=64, width=96)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread in a module that imports this fixture:
+    the tiny CPU nets gain nothing from more, and the suite's parallel
+    workers would otherwise oversubscribe the cores with spinning threads
+    while JAX compiles its references. Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def perturb(tree, rng, path=()):
@@ -37,18 +55,50 @@ def perturb(tree, rng, path=()):
     return out
 
 
-def jax_teacher(opt=TINY, seed=0):
-    """Perturbed (params, batch_stats) of the JAX RepDepth teacher
-    (mono_encoder + mono_depth only), training form."""
-    model = RepDepth(opt)
-    x = jnp.zeros((1, opt.height, opt.width, 3), jnp.float32)
-    variables = jax.jit(lambda: model.init(
-        {"params": jax.random.PRNGKey(seed),
-         "droppath": jax.random.PRNGKey(seed + 1)},
-        x, False, method=RepDepth.forward_mono))()
+@functools.lru_cache(maxsize=None)
+def jax_repdepth(opt=TINY, seed=0):
+    """(params, batch_stats) of the whole JAX RepDepth (student, teacher and
+    pose nets) as numpy: LeCun-normal kernels, and biases, BN scales and
+    statistics, and adapter D_fc2 kernels drawn away from their zero or
+    identity init so folding and adapter bugs cannot hide. Drawn over the
+    shapes of the init (jax.eval_shape, no compile), once per process and
+    (opt, seed); the arrays are read-only, as every caller shares them."""
+    shapes = jax.eval_shape(lambda: RepDepth(opt).init(
+        {"params": jax.random.PRNGKey(0), "droppath": jax.random.PRNGKey(1),
+         "aug": jax.random.PRNGKey(2)},
+        synthetic_batch(opt, 1), 0.1, 10.0, False))
     rng = np.random.RandomState(seed)
-    return (perturb(jax.device_get(variables["params"]), rng),
-            perturb(jax.device_get(variables["batch_stats"]), rng))
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            scale = (0.05 if any(p.key == "D_fc2" for p in path)
+                     else np.prod(shape[:-1]) ** -0.5)
+            a = rng.randn(*shape) * scale
+        elif name == "scale":
+            a = 1 + 0.1 * rng.randn(*shape)
+        elif name in ("bias", "mean"):
+            a = 0.05 * rng.randn(*shape)
+        else:
+            assert name == "var", name
+            a = rng.rand(*shape) * 0.4 + 0.8
+        a = a.astype(np.float32)
+        a.setflags(write=False)
+        return a
+
+    def tree(t):
+        return jax.tree_util.tree_map_with_path(draw, t)
+
+    return tree(shapes["params"]), tree(shapes["batch_stats"])
+
+
+def compile_reference(fn, *args):
+    """`fn` jitted and compiled for `args` with XLA's backend optimisation
+    level 0: a JAX reference compiles in about 30 % less time; the f32
+    results differ from the default build's by rounding only."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True})
 
 
 def nhwc_to_torch(a):
