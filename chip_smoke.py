@@ -8,9 +8,10 @@
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
 adapters, adpt_test=4, 640x192, bf16, merged deploy form, B=8, 96 depth
-bins, ResNet-18 pose net) and its stage-1 training step
+bins, ResNet-18 pose net), its stage-1 training step
 (`ppeadepth_tpu_torch.train.step.make_train_step`, the same network in
-training form, bf16 compute on f32 parameters, B=12) on seeded random
+training form, bf16 compute on f32 parameters, B=12) and its CLI
+(`python -m ppeadepth_tpu_torch.train`, run in-process) on seeded random
 weights, after building the hand-written kernels from
 `ppeadepth_tpu_torch/csrc/` and holding each against its plain PyTorch
 version at the shapes the paths give it:
@@ -19,25 +20,36 @@ version at the shapes the paths give it:
   * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
   * `predict_pose`, 3 pairs, against the CPU f32 result;
   * one f32 training step at B=2 against the same step on the CPU;
-  * 1 + 5 bf16 training steps at B=12 with their invariants checked.
+  * 1 + 5 bf16 training steps at B=12 with their invariants checked;
+  * the training CLI on a synthetic KITTI set on disk (2 epochs of 3 steps
+    at B=12, bf16, with a validation and checkpoints), then a resume
+    from its final checkpoint, exact;
+  * `--eval --lk_backend pallas` (kernel A in place of the Pallas kernel
+    #3, the stem's 3x3 conv included) and `--eval --lk_backend lax` on
+    that checkpoint in f32, against each other and, on two images,
+    against the port's CPU eval.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. Any failed phase raises, so the exit code is non-zero;
-without a CUDA device it stops before doing anything.
+read just after (and each training step of the CLI by what it adds). Any failed
+phase raises, so the exit code is non-zero; without a CUDA device it stops
+before doing anything.
 
 Output, in order: versions and the card's name and power limit; the kernel
 build; per-shape kernel errors and times; the serving checks and times; the
-training checks and times; one JSON line with the kernels' summary; and as
-the last line `{"ok": true, "device": {...}}`.
+training checks and times; the CLI's checks and times; one JSON line with
+the kernels' summary; and as the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
-from types import SimpleNamespace
+
+from ppeadepth_tpu_torch.options import Config
 
 SEED = 0
 BATCH = 8
@@ -61,6 +73,16 @@ PARITY_BATCH = 2        # the f32 card step against the f32 CPU step
 PARITY_METRIC_TOL = 1e-3  # |d| of the loss and each metric (values ~0.1-1)
 PARITY_GRAD_L2 = 1e-2   # relative L2 of the concatenated trainable gradient
 PARITY_BIN_REL = 1e-4   # depth bins after the step, relative
+LK3_F32_REL_TOL = 1e-5  # kernel #3 in f32: max|d| <= tol x max|ref|
+EVAL_BATCH = 12         # --batch_size of the CLI runs
+N_TRAIN = 36            # training items of the synthetic set: 3 steps an epoch
+N_TEST = 17             # its test items: an eval batch and a partial one of 5
+TRAIN_EPOCHS = 2
+VALIDATE_EVERY = 4      # --validate_every: one validation and checkpoint
+LOG_EVERY = 2           # metrics.jsonl records, every 2 steps in this run
+EVAL_LAX_REL_TOL = 1e-4  # f32 eval, pallas vs lax: max|d disp| <= tol x max|ref|
+EVAL_METRIC_REL_TOL = 1e-3  # ... and each metric, relative
+EVAL_CPU_REL_TOL = 1e-4  # f32 eval, card vs CPU: max|d disp| <= tol x max|ref|
 
 # H100 SXM data-sheet peaks (dense, 700 W): the bound of each kernel is
 # max(bytes / memory rate, operations / peak rate of their type)
@@ -69,24 +91,11 @@ F32_FLOP_PER_S = 67e12      # CUDA cores, float32
 BF16_FLOP_PER_S = 989e12    # tensor cores, bf16
 
 # The shipped config (ckpt/models/opt.json: --adapter --rep_size b,
-# adpt_test 4) at KITTI 640x192, under `ppeadepth_tpu.options.Config`'s
-# field names and defaults. Spelled out so this script imports nothing of
-# the JAX package.
-SHIPPED_B = SimpleNamespace(
-    adapter=True, rep_size="b", adpt_test=4, ratio=0.25, g_blk=1.0,
-    g_ffn=1.0, trans=False, input=False, mono_trans=False, mono_input=False,
-    dc=False, dyn_cv=False, num_depth_bins=96, depth_binning="log",
-    height=192, width=640, min_depth=0.1, max_depth=100.0)
-# ... and the fields the training step reads, at Config's defaults with bf16
-# compute (bench.py's train step: no use_checkpoint, batch 12)
-TRAIN_B = SimpleNamespace(
-    **vars(SHIPPED_B), frame_ids=(0, -1, 1), matching_ids=(0, -1),
-    drop_path_rate=0.3, use_checkpoint=False, compute_dtype="bfloat16",
-    learning_rate=1e-4, scheduler_step_size=15, disparity_smoothness=1e-3,
-    no_ssim=False, disable_automasking=False, disable_motion_masking=False,
-    no_matching_augmentation=False, selec_reproj=False, notadabins=False,
-    freeze_teacher_and_pose=False, freeze_pose=False, grad_accum=1,
-    fullft_reb=False, dec_only=False, lps2=False)
+# adpt_test 4) at KITTI 640x192, under the port's `options.Config`, and the
+# training step's: bf16 compute (bench.py's train step: no use_checkpoint,
+# batch 12), Config's defaults otherwise
+SHIPPED_B = Config(adapter=True, rep_size="b", height=192, width=640)
+TRAIN_B = SHIPPED_B.replace(compute_dtype="bfloat16")
 
 
 def _time_pair(plain, kernel, iters):
@@ -557,7 +566,7 @@ def _random_state_dict(opt):
     from ppeadepth_tpu_torch.models import RepDepth, init_weights
 
     # drop path off: the calibration passes run in train mode
-    model = RepDepth(SimpleNamespace(**{**vars(opt), "drop_path_rate": 0.0}))
+    model = RepDepth(opt.replace(drop_path_rate=0.0))
     init_weights(model, torch.Generator().manual_seed(SEED))
     rng = np.random.RandomState(SEED)
 
@@ -798,8 +807,7 @@ def train_parity(sd, dev):
 
     from ppeadepth_tpu_torch.train.step import StepDraws
 
-    opt = SimpleNamespace(**{**vars(TRAIN_B), "compute_dtype": "float32",
-                             "drop_path_rate": 0.0})
+    opt = TRAIN_B.replace(compute_dtype="float32", drop_path_rate=0.0)
     batch = _train_batch(np.random.RandomState(SEED + 2), PARITY_BATCH, opt)
     rng = np.random.RandomState(SEED + 3)
     u = np.linspace(0.1, 0.9, PARITY_BATCH).astype("float32")
@@ -938,6 +946,413 @@ def train_steps(sd, dev, profile):
     return counts
 
 
+def _eval_lk_calls(opt, post_process=True, teacher=True):
+    """(C, H, W, k, calls) of kernel A in one eval batch under --lk_backend
+    pallas: the stem's stride-1 3x3 conv of every RepLKNet pass (current
+    and lookup frames of each student forward, and the teacher), and every
+    block's large and small kernel in each student forward (stage 0 twice)
+    and in the teacher. Under "lax" the stem's entry is absent."""
+    from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
+
+    cfg = REPLK_CONFIGS[opt.rep_size]
+    student = 2 if post_process else 1
+    calls = [(cfg["channels"][0], opt.height // 2, opt.width // 2, 3,
+              2 * student + teacher)]
+    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes()):
+        n = blocks * (student * (2 if i == 0 else 1) + teacher)
+        calls += [(C, H, W, k, n), (C, H, W, cfg["small_kernel"], n)]
+    return calls
+
+
+def check_lk_pallas(dev, rng):
+    """Kernel #3 (the Pallas `depthwise_conv2d_pallas`, kernel A here)
+    against its plain version (cuDNN, TF32 off) at every conv shape of the
+    eval forward at 640x192 under --lk_backend pallas: the stem's k=3 on
+    96x320 and each stage's large k and k=5, in f32 (the eval's compute)
+    and bf16 (validation under bf16 compute), at the eval batch and at the
+    eval run's partial last batch. Times and bounds are per f32 eval batch
+    of EVAL_BATCH (the sum over its calls); the library yardstick is the
+    plain version, one cuDNN call."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
+
+    worst, tot, bound = 0.0, {"ms": 0.0, "plain_ms": 0.0}, _Bound()
+    for C, H, W, k, calls in _eval_lk_calls(SHIPPED_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = LK3_F32_REL_TOL if dtype == torch.float32 else A_REL_TOL
+            for B in (EVAL_BATCH, N_TEST % EVAL_BATCH):
+                def t(shape, scale):
+                    return torch.from_numpy((rng.randn(*shape) * scale).astype(
+                        "float32")).to(dev).to(dtype)
+
+                x = t((B, H, W, C), 1.0).permute(0, 3, 1, 2)
+                w = t((C, 1, k, k), 1.0 / k)
+                y = lk_depthwise(x, w)
+                torch.cuda.synchronize()
+                ref = depthwise_plain(x.float(), w.float())
+                err = (y.float() - ref).abs().max().item()
+                peak = ref.abs().max().item()
+                tag = f"kernel #3 [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}"
+                print(f"{tag}: max|d|={err:.3e} max|ref|={peak:.3e} "
+                      f"(tol {tol:g} x max|ref|)")
+                if not err <= tol * peak:
+                    raise AssertionError(f"{tag} disagrees: {err} > {tol} x {peak}")
+                worst = max(worst, err)
+                if B != EVAL_BATCH:
+                    continue
+                p, kk = _time_pair(lambda: depthwise_plain(x, w),
+                                   lambda: lk_depthwise(x, w), 10)
+                macs = _dw_macs(B, H, W, C, k)
+                bnd, by = _bound_ms(x.element_size() * (2 * B * H * W * C + C * k * k),
+                                    2 * macs, F32_FLOP_PER_S)
+                print(f"{tag}: {kk:.4f} ms/call ({macs / kk / 1e9:.2f} T "
+                      f"multiply-adds/s), plain (cuDNN) {p:.4f} ms/call, bound "
+                      f"{bnd:.4f} ms ({by}), x{calls} per eval batch")
+                if dtype == torch.float32:
+                    tot["ms"] += kk * calls
+                    tot["plain_ms"] += p * calls
+                    bound.add(bnd, by, calls)
+    print(f"kernel #3 per f32 eval batch of {EVAL_BATCH} "
+          f"({sum(c[4] for c in _eval_lk_calls(SHIPPED_B))} calls): "
+          f"{tot['ms']:.3f} ms, plain (cuDNN) {tot['plain_ms']:.3f} ms, bound "
+          f"{bound.ms:.3f} ms")
+    return dict(max_abs_err=worst, bound_ms=bound.ms, bound_by=bound.by,
+                library_ms=tot["plain_ms"], **tot)
+
+
+KITTI_FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
+
+
+def _kitti_set(root, rng):
+    """A synthetic KITTI raw set under `root`, in the KITTI layout
+    (kitti/<date>/<drive>/image_02/data/%010d.jpg, 375x1242): a smooth
+    random texture shifted 3 px per frame, as a camera panning over a
+    scene; split files of the split "smoke" (N_TRAIN training items, N_TEST
+    test items) and a synthetic gt_depths.npz for its test items (smooth
+    depths of 5-60 m at ~5 % of the pixels, as lidar leaves them)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    n_frames = N_TRAIN + 2
+    data = os.path.join(root, "kitti", KITTI_FOLDER, "image_02", "data")
+    os.makedirs(data)
+    base = rng.rand(375, 1242 + 3 * n_frames, 3) * 255
+    for _ in range(3):
+        base = (0.5 * base + 0.125 * (np.roll(base, 1, 0) + np.roll(base, -1, 0)
+                                      + np.roll(base, 1, 1) + np.roll(base, -1, 1)))
+    for f in range(n_frames):
+        Image.fromarray(base[:, 3 * f:3 * f + 1242].astype(np.uint8)).save(
+            os.path.join(data, f"{f:010d}.jpg"), quality=92)
+    split = os.path.join(root, "splits", "smoke")
+    os.makedirs(split)
+    lines = [f"{KITTI_FOLDER} {i} l" for i in range(1, n_frames - 1)]
+    with open(os.path.join(split, "train_files.txt"), "w") as fh:
+        fh.write("\n".join(lines[:N_TRAIN]) + "\n")
+    with open(os.path.join(split, "test_files.txt"), "w") as fh:
+        fh.write("\n".join(lines[:N_TEST]) + "\n")
+    yy, xx = np.mgrid[0:375, 0:1242] / np.array([375.0, 1242.0])[:, None, None]
+    gt = []
+    for i in range(N_TEST):
+        depth = 5 + 55 * (0.5 + 0.5 * np.sin(3 * xx + i) * np.cos(2 * yy))
+        gt.append(np.where(rng.rand(375, 1242) < 0.05, depth, 0).astype("float32"))
+    np.savez(os.path.join(split, "gt_depths.npz"), data=np.stack(gt))
+
+
+def _cli_args(extra=()):
+    """The CLI flags of the shipped configuration on the synthetic set."""
+    return ["--adapter", "--rep_size", "b", "--height", "192", "--width", "640",
+            "--batch_size", str(EVAL_BATCH), "--data_path", "kitti",
+            "--split", "smoke", "--eval_split", "smoke", "--num_workers", "8",
+            *extra]
+
+
+def train_cli(sd, dev):
+    """`python -m ppeadepth_tpu_torch.train` in-process, from the current
+    directory (the synthetic set): TRAIN_EPOCHS epochs of N_TRAIN items at
+    B=12, bf16, validation and a checkpoint every VALIDATE_EVERY steps,
+    from a seed checkpoint holding `sd` (calibrated random weights; no Adam
+    state, so Adam starts fresh). The counts are set to 0 just before the
+    run and read after it; each training step's launches are what it
+    added to them.
+    Returns (trainer, its final checkpoint folder, the run's counts)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch.eval import metrics as M
+    from ppeadepth_tpu_torch.train import __main__ as cli
+    from ppeadepth_tpu_torch.train import trainer as trainer_mod
+
+    os.makedirs("seed")
+    torch.save(sd, os.path.join("seed", "model.pth"))
+    args = _cli_args(["--compute_dtype", "bfloat16", "--weights_init", "scratch",
+                      "--num_epochs", str(TRAIN_EPOCHS), "--validate_every",
+                      str(VALIDATE_EVERY), "--log_dir", "ckpt", "--name", "smoke",
+                      "--pytorch_random_seed", "0", "--load_weights_folder", "seed"])
+    print("train CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
+    steps, vals = [], []
+    make_step, run_eval = trainer_mod.make_train_step, trainer_mod.evaluator.run_eval
+
+    def counted_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(state, batch, draws=None):
+            before = dict(kernels.launch_counts)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, draws)
+            torch.cuda.synchronize()
+            steps.append((t0, time.perf_counter(),
+                          {k: n - before[k] for k, n in kernels.launch_counts.items()},
+                          {k: v.item() for k, v in metrics.items()}))
+            return state, metrics
+        return run
+
+    def timed_eval(*a, **kw):
+        t0 = time.perf_counter()
+        out = run_eval(*a, **kw)
+        vals.append((t0, time.perf_counter()))
+        return out
+
+    trainer_mod.make_train_step = counted_make_step
+    trainer_mod.evaluator.run_eval = timed_eval
+    trainer_mod.LOG_EVERY = LOG_EVERY  # records within the short run
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(args)
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+    finally:
+        trainer_mod.make_train_step = make_step
+        trainer_mod.evaluator.run_eval = run_eval
+        trainer_mod.LOG_EVERY = 50
+    peak = torch.cuda.max_memory_allocated()
+
+    n_steps = TRAIN_EPOCHS * N_TRAIN // EVAL_BATCH
+    expected = _expected_launches(TRAIN_B)
+    for i, (_, _, c, m) in enumerate(steps):
+        print(f"train CLI step {i + 1}: loss {m['loss']:.6f}, launches {c}")
+        if c != expected:
+            raise AssertionError(f"train CLI: step {i + 1} launches {c}, "
+                                 f"expected {expected}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train CLI: non-finite metrics {m}")
+    if len(steps) != n_steps or trainer.state.step != n_steps:
+        raise AssertionError(f"train CLI: {len(steps)} steps, expected {n_steps}")
+    # validation: per test batch the student once and the teacher (kernel A
+    # 52 + 48 calls, kernel C once), over ceil(N_TEST / B) batches
+    n_val = n_steps // VALIDATE_EVERY
+    val_batches = n_val * -(-N_TEST // EVAL_BATCH)
+    per_val = sum(c[4] for c in _eval_lk_calls(TRAIN_B, False)[1:])
+    _check_counts(counts, {
+        "lk_dwconv": n_steps * expected["lk_dwconv"] + val_batches * per_val,
+        "lk_dwconv_dx": n_steps * expected["lk_dwconv_dx"],
+        "warp_fwd": 2 * n_steps, "warp_bwd": 2 * n_steps, "ffn_fused": 0,
+        "plane_sweep": n_steps + val_batches},
+        f"train CLI: {n_steps} steps and {n_val} validations")
+
+    log = os.path.join("ckpt", "smoke")
+    with open(os.path.join(log, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    train_keys = {"step", "prefix", *steps[0][3]}
+    val_keys = {"step", "prefix", *M.METRIC_NAMES}
+    for prefix, keys, n in (("train", train_keys, n_steps // LOG_EVERY),
+                            ("val", val_keys, n_val), ("val_mono", val_keys, n_val)):
+        got = [r for r in recs if r["prefix"] == prefix]
+        if len(got) != n or any(set(r) != keys for r in got) or not all(
+                np.isfinite(v) for r in got for k, v in r.items()
+                if k not in ("step", "prefix")):
+            raise AssertionError(f"train CLI: metrics.jsonl {prefix} records {got}")
+    folders = [f"smoke_s{s}" for s in range(VALIDATE_EVERY, n_steps + 1, VALIDATE_EVERY)]
+    for folder in folders + ["smoke_final"]:
+        for name in ("model.pth", "adam.pth", "track.json", "opt.json"):
+            if not os.path.isfile(os.path.join(log, folder, name)):
+                raise AssertionError(f"train CLI: {folder}/{name} missing")
+    print(f"train CLI: metrics.jsonl holds {len(recs)} records (train, val, "
+          f"val_mono), finite; checkpoints {folders + ['smoke_final']} hold "
+          f"model.pth, adam.pth, track.json, opt.json")
+
+    # the loop's rate: a step and the wait for its batch, for steps that are
+    # not the first of an epoch and follow no validation
+    per_epoch = N_TRAIN // EVAL_BATCH
+    clean = [steps[i][1] - steps[i - 1][1] for i in range(1, len(steps))
+             if i % per_epoch and not any(steps[i - 1][1] <= v0 < steps[i][0]
+                                          for v0, _ in vals)]
+    step_ms = [(e - s) * 1e3 for s, e, _, _ in steps]
+    print(f"train CLI B={EVAL_BATCH} 640x192 bf16: loop "
+          f"{EVAL_BATCH * len(clean) / sum(clean):.2f} images/s over "
+          f"{len(clean)} steps with their loader wait (intervals "
+          f"{[round(c * 1e3, 3) for c in clean]} ms); steps alone "
+          f"{[round(t, 3) for t in step_ms]} ms; validations "
+          f"{[round((e - s) * 1e3, 3) for s, e in vals]} ms; whole run "
+          f"{wall:.2f} s; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    return trainer, os.path.join(log, "smoke_final"), counts
+
+
+def check_resume(trainer, folder):
+    """A new Trainer with --load_weights_folder on the final checkpoint:
+    parameters, BN statistics, Adam's state and schedule, depth bins and
+    step equal the saved ones, and the trained ones, exactly."""
+    import os
+
+    import torch
+
+    from ppeadepth_tpu_torch.options import parse_args
+    from ppeadepth_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    resumed = Trainer(parse_args(_cli_args([
+        "--compute_dtype", "bfloat16", "--log_dir", "ckpt", "--name", "resume",
+        "--load_weights_folder", folder])))
+    resumed.close()
+    saved = torch.load(os.path.join(folder, "model.pth"), weights_only=True)
+    adam = torch.load(os.path.join(folder, "adam.pth"), weights_only=True)
+    bad = []
+    for src, sd in (("saved", saved), ("trained", trainer.model.state_dict())):
+        got = resumed.model.state_dict()
+        bad += [f"{src}:{k}" for k in sd if not torch.equal(sd[k].cpu(), got[k].cpu())]
+        if set(sd) != set(got):
+            bad.append(f"{src}: key sets differ")
+    for src, opt_sd in (("saved", adam["optimizer"]),
+                        ("trained", trainer.optimizer.state_dict())):
+        got = resumed.optimizer.state_dict()
+        if opt_sd["param_groups"] != got["param_groups"] or set(opt_sd["state"]) != set(got["state"]):
+            bad.append(f"{src}: Adam param groups or state keys")
+        bad += [f"{src}: Adam {i}.{k}" for i, st in opt_sd["state"].items()
+                for k, v in st.items() if not torch.equal(v.cpu(), got["state"][i][k].cpu())]
+    if resumed.scheduler.state_dict() != adam["scheduler"]:
+        bad.append("scheduler")
+    for name in ("min_depth_bin", "max_depth_bin"):
+        a, b = getattr(trainer.state, name), getattr(resumed.state, name)
+        if not torch.equal(a, b):
+            bad.append(f"{name} {a.item()} vs {b.item()}")
+    if resumed.state.step != trainer.state.step:
+        bad.append(f"step {resumed.state.step} vs {trainer.state.step}")
+    n_adam = sum(len(st) for st in adam["optimizer"]["state"].values())
+    print(f"resume: Trainer built from {folder} in {time.perf_counter() - t0:.2f} s; "
+          f"{len(saved)} model entries, {n_adam} Adam tensors, scheduler, bins "
+          f"[{resumed.state.min_depth_bin.item()}, {resumed.state.max_depth_bin.item()}] "
+          f"and step {resumed.state.step} against the saved and trained ones: "
+          f"{len(bad)} differ")
+    if bad:
+        raise AssertionError(f"resume: not exact: {bad[:10]}")
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def eval_cli(folder, profile):
+    """`python -m ppeadepth_tpu_torch.train --eval --lk_backend pallas` on
+    the final checkpoint, f32, with --eval_teacher and --post_process, then
+    the same under --lk_backend lax; the launches of each run (read with
+    the counts set to 0 just before it) are exact, their metrics finite,
+    and the pallas run's disparities agree with the lax run's and, on the
+    first two test images, with the port's CPU eval. With `profile`, a
+    device-time breakdown of the pallas eval step on the first batch."""
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch import data as D
+    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch.ckpt import io as ckpt_io
+    from ppeadepth_tpu_torch.eval import evaluator
+    from ppeadepth_tpu_torch.models import RepDepth
+    from ppeadepth_tpu_torch.options import parse_args
+    from ppeadepth_tpu_torch.train import __main__ as cli
+    from ppeadepth_tpu_torch.train.trainer import readlines
+
+    base = _cli_args(["--eval", "--load_weights_folder", folder, "--eval_teacher",
+                      "--post_process"])
+    batches = -(-N_TEST // EVAL_BATCH)
+    captured, runs = [], {}
+    predict = evaluator.predict_disps
+
+    def capture(*a, **kw):
+        t0 = time.perf_counter()
+        out = predict(*a, **kw)
+        captured.append((*out, time.perf_counter() - t0))
+        return out
+
+    evaluator.predict_disps = capture
+    try:
+        for backend in ("pallas", "lax"):
+            args = base + ["--lk_backend", backend]
+            print(f"eval CLI: python -m ppeadepth_tpu_torch.train {' '.join(args)}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            errors, mono = cli.main(args)
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.launch_counts)
+            calls = _eval_lk_calls(SHIPPED_B)[(backend == "lax"):]
+            _check_counts(counts, {"lk_dwconv": batches * sum(c[4] for c in calls),
+                                   "plane_sweep": 2 * batches, "ffn_fused": 0,
+                                   "lk_dwconv_dx": 0, "warp_fwd": 0, "warp_bwd": 0},
+                          f"eval CLI {backend}: {N_TEST} images in {batches} batches")
+            if not (np.isfinite(errors).all() and np.isfinite(mono).all()):
+                raise AssertionError(f"eval CLI {backend}: non-finite metrics")
+            device_pass = captured[-1][2]
+            print(f"eval CLI {backend}: {wall:.2f} s for {N_TEST} images "
+                  f"({wall / N_TEST * 1e3:.2f} ms per image, model load, "
+                  f"loader and CPU metric pass included); the device pass with "
+                  f"its loader {device_pass:.3f} s ({device_pass / N_TEST * 1e3:.2f} "
+                  f"ms per image); student {errors.tolist()}, teacher {mono.tolist()}")
+            runs[backend] = (errors, mono, *captured[-1][:2], counts)
+    finally:
+        evaluator.predict_disps = predict
+
+    (e_p, m_p, d_p, md_p, counts), (e_l, m_l, d_l, md_l, _) = runs["pallas"], runs["lax"]
+    disp_err = max(_rel(d_p, d_l), _rel(md_p, md_l))
+    metric_err = max(float(np.max(np.abs(a - b) / np.abs(b)))
+                     for a, b in ((e_p, e_l), (m_p, m_l)))
+    print(f"eval CLI pallas vs lax: disparities max|d| {disp_err:.3e} of max|ref| "
+          f"(tol {EVAL_LAX_REL_TOL:g}), metrics max rel {metric_err:.3e} "
+          f"(tol {EVAL_METRIC_REL_TOL:g})")
+    if not (disp_err <= EVAL_LAX_REL_TOL and metric_err <= EVAL_METRIC_REL_TOL):
+        raise AssertionError("eval CLI: pallas and lax disagree")
+
+    opt = parse_args(base + ["--lk_backend", "pallas"])
+    model = RepDepth(opt)
+    track = ckpt_io.load_model(folder, model)
+    files = readlines("splits/smoke/test_files.txt")
+    if profile:
+        ds = D.DATASETS["kitti"]("kitti", files[:EVAL_BATCH], opt.height,
+                                 opt.width, [0, -1], 4)
+        batch = next(iter(D.DataLoader(ds, EVAL_BATCH, shuffle=False)))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        step = evaluator.make_eval_step(model.cuda().eval(), opt, True)
+        bins = (track["min_depth_bin"], track["max_depth_bin"])
+        profile_serving(f"eval_step f32 B={EVAL_BATCH} pallas",
+                        lambda: step(batch, *bins), [()])
+        model.cpu()
+
+    # the port's CPU eval of the first two test images, same checkpoint
+    files = files[:2]
+    ds = D.DATASETS["kitti"]("kitti", files, opt.height, opt.width, [0, -1], 4)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        d_c, md_c = evaluator.predict_disps(
+            model, opt, iter(D.DataLoader(ds, 2, shuffle=False, num_workers=2,
+                                          drop_last=False)),
+            track["min_depth_bin"], track["max_depth_bin"], True, device="cpu")
+    cpu_err = max(_rel(d_p[:2], d_c), _rel(md_p[:2], md_c))
+    print(f"eval CLI card vs CPU (first 2 test images, f32, CPU pass "
+          f"{time.perf_counter() - t0:.2f} s): disparities max|d| {cpu_err:.3e} "
+          f"of max|ref| (tol {EVAL_CPU_REL_TOL:g}); range [{d_c.min():.4f}, "
+          f"{d_c.max():.4f}]")
+    if not cpu_err <= EVAL_CPU_REL_TOL:
+        raise AssertionError("eval CLI: the card's disparities disagree with the CPU's")
+    return counts
+
+
 def _category(name):
     n = name.lower()
     for key, cat in (("lk_dwconv", "kernel A (lk_dwconv; forward and dx)"),
@@ -964,8 +1379,8 @@ def _category(name):
 
 def profile_serving(tag, fn, requests):
     """torch.profiler over 5 calls (batches or training steps): device time
-    by kernel category, device busy (union of kernel intervals) and the
-    host wall."""
+    by kernel category and of the 5 costliest kernels, device busy (union
+    of kernel intervals) and the host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -977,15 +1392,16 @@ def profile_serving(tag, fn, requests):
             fn(*requests[i % len(requests)])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 5
-    spans, cats = [], {}
+    spans, cats, names = [], {}, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         r = e.time_range
         spans.append((r.start, r.end))
-        c = cats.setdefault(_category(e.name), [0.0, 0])
-        c[0] += (r.end - r.start) / 1e3 / 5
-        c[1] += 1
+        for key, acc in ((_category(e.name), cats), (e.name, names)):
+            c = acc.setdefault(key, [0.0, 0])
+            c[0] += (r.end - r.start) / 1e3 / 5
+            c[1] += 1
     if not spans:
         raise AssertionError(f"profile {tag}: the trace holds no device time")
     busy, end = 0.0, float("-inf")
@@ -1000,6 +1416,9 @@ def profile_serving(tag, fn, requests):
     for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         print(f"profile {tag}: {cat}: {ms:.3f} ms/batch, {100 * ms / total:.1f} % "
               f"of device time, {n / 5:g} kernels/batch")
+    for name, (ms, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"profile {tag}: top kernel {ms:.3f} ms/batch, {n / 5:g}/batch: "
+              f"{name[:120]}")
 
 
 def main():
@@ -1041,6 +1460,7 @@ def main():
     c = check_plane_sweep(dev, rng)
     d = check_warp(dev, rng)
     lk2 = check_lk_train(dev, rng)
+    lk3 = check_lk_pallas(dev, rng)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -1073,6 +1493,20 @@ def main():
     train_parity(sd, dev)
     by_path["train_step"] = train_steps(sd, dev, profile)
 
+    # the CLI: training with validation and checkpoints, resume, and --eval,
+    # on a synthetic KITTI set in a temporary directory
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        _kitti_set(root, np.random.RandomState(SEED + 5))
+        os.chdir(root)
+        try:
+            trainer, final, by_path["train_cli"] = train_cli(sd, dev)
+            check_resume(trainer, final)
+            del trainer
+            by_path["eval_pallas"] = eval_cli(final, profile)
+        finally:
+            os.chdir(cwd)
+
     entries = []
     for kname, src, replaces, res, per, path in (
             ("lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
@@ -1087,7 +1521,10 @@ def main():
              "call ([24,192,640,3], one per branch)", "train_step"),
             ("lk_dwconv_dx", "lk_dwconv.cu", "banded_conv.py:152", lk2,
              "training step, bf16 (100 forward + 96 dx calls of kernel A)",
-             "train_step")):
+             "train_step"),
+            ("lk_dwconv", "lk_dwconv.cu", "lk_conv_pallas.py:70", lk3,
+             "f32 eval batch of 12 under --lk_backend pallas (157 calls of "
+             "kernel A)", "eval_pallas")):
         entries.append({
             "name": kname, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",
@@ -1097,6 +1534,7 @@ def main():
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "times_per": per,
             "launches_by_path": {p: n[kname] for p, n in by_path.items()}})
+    entries[-1]["name"] = "lk_dwconv (kernel #3)"
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,27 +20,30 @@ from ..kernels.lk_conv import lk_depthwise, lk_depthwise_train
 class DepthwiseConv(nn.Module):
     """Depthwise conv with SAME padding; weight [C, 1, k, k].
 
-    `large=True` marks the depthwise convs of ReparamLKConv: they run
-    through kernel A (stride 1 only), as `kernels.lk_conv.lk_depthwise`,
-    or as the differentiable `lk_depthwise_train` whenever autograd is
-    recording. The weight is cast to the input's dtype at the call (f32
-    parameters under bf16 compute). The small depthwise convs of the stem
-    and transitions stay `F.conv2d`, as the JAX package leaves them to
-    XLA."""
+    `kernel_a=True` runs the conv through kernel A (stride 1 only), as
+    `kernels.lk_conv.lk_depthwise`, or as the differentiable
+    `lk_depthwise_train` whenever autograd is recording: the depthwise
+    convs of ReparamLKConv always, and the stem's stride-1 3x3 conv under
+    `--lk_backend pallas`, the convs the JAX package routes to its Pallas
+    kernel there (kernels/lk_conv.py `depthwise_conv2d`). The weight is
+    cast to the input's dtype at the call (f32 parameters under bf16
+    compute). The other depthwise convs (stride 2 in the stem and
+    transitions, and the stem's 3x3 under "lax") stay `F.conv2d`, as the
+    JAX package leaves them to XLA."""
 
     def __init__(self, channels: int, kernel_size: int, stride: int = 1,
-                 bias: bool = False, large: bool = False):
+                 bias: bool = False, kernel_a: bool = False):
         super().__init__()
-        if large and stride != 1:
-            raise ValueError("large-kernel depthwise conv is stride 1 only")
+        if kernel_a and stride != 1:
+            raise ValueError("kernel A takes stride-1 depthwise convs only")
         self.stride = stride
-        self.large = large
+        self.kernel_a = kernel_a
         self.weight = nn.Parameter(
             torch.empty(channels, 1, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(channels)) if bias else None
 
     def forward(self, x):
-        if self.large:
+        if self.kernel_a:
             w = self.weight.to(x.dtype)
             b = None if self.bias is None else self.bias.to(x.dtype)
             if not torch.is_grad_enabled():
@@ -57,10 +60,11 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, relu: bool = False,
-                 large: bool = False):
+                 kernel_a: bool = False):
         super().__init__()
         if groups == out_ch == in_ch:
-            self.conv = DepthwiseConv(out_ch, kernel_size, stride, large=large)
+            self.conv = DepthwiseConv(out_ch, kernel_size, stride,
+                                      kernel_a=kernel_a)
         else:
             self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
                                   kernel_size // 2, groups=groups, bias=False)

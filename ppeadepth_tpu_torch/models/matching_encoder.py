@@ -32,13 +32,13 @@ class RepLKMatching(nn.Module):
                  trans_adpt: bool = False, input_adpt: bool = False,
                  merged: bool = False, num_depth_bins: int = 96,
                  depth_binning: str = "log", drop_path_rate: float = 0.0,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, lk_backend: str = "lax"):
         super().__init__()
         self.replk = RepLKNet(
             rep_size=rep_size, adpt_test=adpt_test, g_blk=g_blk, g_ffn=g_ffn,
             ratio=ratio, trans_adpt=trans_adpt, input_adpt=input_adpt,
             merged=merged, drop_path_rate=drop_path_rate,
-            use_checkpoint=use_checkpoint)
+            use_checkpoint=use_checkpoint, lk_backend=lk_backend)
         c0 = self.replk.stem[0].conv.out_channels
         self.reduce_conv = nn.Sequential(
             nn.Conv2d(c0 + num_depth_bins, c0, 3, padding=1), nn.ReLU())

@@ -62,13 +62,14 @@ def matching_augmentation(u, current, lookup_frames, rel_poses):
 
 
 class RepDepth(nn.Module):
-    """opt: `ppeadepth_tpu.options.Config`, or any object with its fields
-    adapter, adpt_test, rep_size, g_blk, g_ffn, ratio, trans, input,
-    mono_trans, mono_input, dc, dyn_cv, num_depth_bins and depth_binning
-    (the port itself imports nothing of the JAX package); training also
+    """opt: `options.Config` (or the JAX package's), or any object with its
+    fields adapter, adpt_test, rep_size, g_blk, g_ffn, ratio, trans,
+    input, mono_trans, mono_input, dc, dyn_cv, num_depth_bins and
+    depth_binning (the port imports nothing of the JAX package); training also
     reads frame_ids, matching_ids, height, width and
-    no_matching_augmentation, and drop_path_rate and use_checkpoint where
-    the object has them (Config's defaults 0.3 and False otherwise)."""
+    no_matching_augmentation, and drop_path_rate, use_checkpoint and
+    lk_backend where the object has them (Config's defaults 0.3, False and
+    "lax" otherwise)."""
 
     def __init__(self, opt, merged: bool = False):
         super().__init__()
@@ -79,7 +80,8 @@ class RepDepth(nn.Module):
         common = dict(rep_size=opt.rep_size, adpt_test=adpt, g_blk=opt.g_blk,
                       g_ffn=opt.g_ffn, ratio=opt.ratio, merged=merged,
                       drop_path_rate=getattr(opt, "drop_path_rate", 0.3),
-                      use_checkpoint=getattr(opt, "use_checkpoint", False))
+                      use_checkpoint=getattr(opt, "use_checkpoint", False),
+                      lk_backend=getattr(opt, "lk_backend", "lax"))
         self.opt = opt
         ch = num_ch_enc(opt.rep_size)
         self.encoder = RepLKMatching(

@@ -80,14 +80,14 @@ class ReparamLKConv(nn.Module):
         self.merged = merged
         if merged:
             self.lkb_reparam = DepthwiseConv(channels, kernel_size, bias=True,
-                                             large=True)
+                                             kernel_a=True)
             return
         self.lkb_origin = ConvBN(channels, channels, kernel_size,
-                                 groups=channels, large=True)
+                                 groups=channels, kernel_a=True)
         self.small_conv = None
         if small_kernel is not None:
             self.small_conv = ConvBN(channels, channels, small_kernel,
-                                     groups=channels, large=True)
+                                     groups=channels, kernel_a=True)
 
     def forward(self, x):
         if self.merged:
@@ -256,8 +256,10 @@ class RepLKNet(nn.Module):
                  g_blk: float = 1.0, g_ffn: float = 1.0, ratio: float = 0.25,
                  trans_adpt: bool = False, input_adpt: bool = False,
                  merged: bool = False, drop_path_rate: float = 0.0,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, lk_backend: str = "lax"):
         super().__init__()
+        if lk_backend not in ("lax", "pallas"):
+            raise ValueError(f"unknown lk_backend {lk_backend!r}")
         if trans_adpt or input_adpt:
             raise NotImplementedError(
                 "transition/input adapters (--mono_trans/--mono_input) are "
@@ -268,7 +270,10 @@ class RepLKNet(nn.Module):
         base = channels[0]
         self.stem = nn.ModuleList([
             ConvBN(in_channels, base, 3, stride=2, relu=True),
-            ConvBN(base, base, 3, groups=base, relu=True),
+            # under "pallas" the one stride-1 depthwise conv outside the
+            # blocks joins kernel A, as in the JAX package
+            ConvBN(base, base, 3, groups=base, relu=True,
+                   kernel_a=lk_backend == "pallas"),
             ConvBN(base, base, 1, relu=True),
             ConvBN(base, base, 3, stride=2, groups=base, relu=True),
         ])

@@ -5,6 +5,9 @@ ppeadepth_tpu/serve.py `InferenceSession`).
   session.predict_depth_multi(img, lookup, K, invK) student (cost volume) depth
   session.predict_pose(a, b)                        relative pose [B, 4, 4]
 
+Weights come from a state_dict, a checkpoint folder of the port's Trainer,
+or a reference `model.pth`, as in the JAX session (serve.py:36-72).
+
 The deploy form is built once: BN folded and the small kernel merged into
 the large one (`ckpt.deploy.structural_reparam`), every ConvFFN of both
 encoders folded into kernel-B operands, conv/linear weights cast to the
@@ -23,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .ckpt import io as ckpt_io
 from .ckpt.deploy import structural_reparam
 from .core.geometry import disp_to_depth
 from .models import RepDepth, cast_compute, init_weights
@@ -33,18 +37,25 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class InferenceSession:
     """Teacher and student depth serving, and pose.
 
-    opt: `ppeadepth_tpu.options.Config`, or any object with its fields that
-    `models.RepDepth` reads plus height, width, min_depth and max_depth.
-    state_dict: the whole RepDepth in training form with the reference's
-    names (e.g. from `ckpt.convert.state_dict_from_jax`), loaded with
-    strict=True; None draws random weights from `generator` (seed 0 when
-    None). device: "cuda" unless the caller asks for the CPU.
+    opt: `options.Config` (or the JAX package's), or any object with its
+    fields that `models.RepDepth` reads plus height, width, min_depth and
+    max_depth. The weights come from one of:
+      state_dict: the whole RepDepth in training form with the reference's
+        names (e.g. from `ckpt.convert.state_dict_from_jax`), loaded with
+        strict=True;
+      checkpoint: a checkpoint folder of the port's Trainer (`ckpt.io`):
+        its model.pth merged by name, and the depth bins of its
+        track.json;
+      torch_checkpoint: a reference `model.pth`, loaded with strict=True;
+    or, with none of them, random weights drawn from `generator` (seed 0
+    when None). device: "cuda" unless the caller asks for the CPU.
     min_depth_bin, max_depth_bin: the student's depth-bin range (the JAX
-    session's defaults; a trained model's tracker values replace them)."""
+    session's defaults; a checkpoint's track.json replaces them)."""
 
     def __init__(self, opt, state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 *, device="cuda", dtype: str = "bfloat16",
-                 merge_reparam: bool = True,
+                 *, checkpoint: Optional[str] = None,
+                 torch_checkpoint: Optional[str] = None, device="cuda",
+                 dtype: str = "bfloat16", merge_reparam: bool = True,
                  generator: Optional[torch.Generator] = None,
                  min_depth_bin: float = 0.1, max_depth_bin: float = 10.0):
         if opt.height % 32 or opt.width % 32:
@@ -57,8 +68,18 @@ class InferenceSession:
         self.dtype = _DTYPES[dtype]
         self.min_depth_bin = min_depth_bin
         self.max_depth_bin = max_depth_bin
+        if sum(x is not None for x in (state_dict, checkpoint, torch_checkpoint)) > 1:
+            raise ValueError("pass at most one of state_dict, checkpoint and "
+                             "torch_checkpoint")
         model = RepDepth(opt)
-        if state_dict is None:
+        if torch_checkpoint is not None:
+            state_dict = ckpt_io.load_torch_checkpoint(torch_checkpoint)
+        elif checkpoint is not None:
+            track = ckpt_io.load_model(checkpoint, model)
+            self.min_depth_bin = track.get("min_depth_bin", min_depth_bin)
+            self.max_depth_bin = track.get("max_depth_bin", max_depth_bin)
+            state_dict = model.state_dict()
+        elif state_dict is None:
             init_weights(model, generator or torch.Generator().manual_seed(0))
             state_dict = model.state_dict()
         if merge_reparam:

@@ -63,3 +63,18 @@ def apply_labels(model: nn.Module, labels: Dict[str, str]) -> None:
     """requires_grad = (label == "trainable") for every parameter."""
     for name, p in model.named_parameters():
         p.requires_grad_(labels[name] == TRAIN)
+
+
+def print_num_param(model: nn.Module, labels: Dict[str, str]) -> Dict:
+    """Per-submodule trainable and total parameter counts, printed as the
+    JAX `freeze.print_num_param` prints them (repdepth.py:511-526);
+    returns {submodule: (trainable, total)}."""
+    mods = {}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        t, n = mods.get(top, (0, 0))
+        mods[top] = (t + (p.numel() if labels[name] == TRAIN else 0),
+                     n + p.numel())
+    for mod, (t, n) in sorted(mods.items()):
+        print(f"for {mod} ", t, n)
+    return mods

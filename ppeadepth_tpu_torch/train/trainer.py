@@ -1,0 +1,205 @@
+"""Training orchestrator (JAX counterpart: train/trainer.py; the reference's
+Trainer, trainer.py:83-418): datasets and loaders, the model and its
+optimizer, checkpoints, and the loop of training steps with validation.
+
+Differences from the JAX Trainer: one device and no mesh; the JAX
+package's automatic `--remat_loss` guard for a 16 GB TPU has no
+counterpart. Not ported yet, and raising: `--grad_accum > 1`,
+`--fast_pipeline` (with its device-side augmentation and native loader),
+and stage 2 (`--dc`, `--train_cs`). Logging is stdout and
+`metrics.jsonl` under the JAX keys.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import torch
+
+from .. import data as D
+from ..ckpt import io as ckpt_io
+from ..eval import evaluator, metrics as M
+from ..models import RepDepth, init_weights
+from . import freeze, schedule
+from .step import create_train_state, make_train_step
+
+# training steps between two metrics records (trainer.py: every 50)
+LOG_EVERY = 50
+
+
+def readlines(path):
+    with open(path) as f:
+        return [line.rstrip() for line in f if line.rstrip()]
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist (the CLI runs
+    on the card and does not fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was asked for and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def check_ported(opt) -> None:
+    """Raise for the options whose paths are not ported yet."""
+    for flag, on, slice_name in (
+            ("--grad_accum > 1", opt.grad_accum > 1, "gradient accumulation"),
+            ("--fast_pipeline", opt.fast_pipeline, "fast input pipeline"),
+            ("--dc", opt.dc, "stage-2"),
+            ("--train_cs", opt.train_cs, "stage-2")):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported yet; it comes with the {slice_name} "
+                "slice")
+
+
+class Trainer:
+    """opt: `options.Config` (or the JAX package's); splits_dir: holds
+    <split>/{train,test}_files.txt and <eval_split>/gt_depths.npz; device:
+    "cuda" unless the caller asks for the CPU."""
+
+    def __init__(self, opt, splits_dir: str = "./splits", device="cuda"):
+        self.opt = opt = opt.with_mode_presets()
+        check_ported(opt)
+        self.device = device = resolve_device(device)
+        self.splits_dir = splits_dir
+        self.log_path = os.path.join(opt.log_dir, opt.name)
+        os.makedirs(self.log_path, exist_ok=True)
+
+        # datasets
+        frames_to_load = list(opt.frame_ids)
+        for idx in opt.matching_ids:
+            if idx not in frames_to_load:
+                frames_to_load.append(idx)
+        self.train_loader = self.val_loader = None
+        if opt.data_path:
+            ds_cls = D.DATASETS[opt.dataset]
+            fpath = os.path.join(splits_dir, opt.split, "{}_files.txt")
+            img_ext = ".png" if opt.png else ".jpg"
+            train_ds = ds_cls(
+                opt.data_path, readlines(fpath.format("train")), opt.height,
+                opt.width, frames_to_load, 4, is_train=True, img_ext=img_ext)
+            val_ds = ds_cls(
+                opt.data_path, readlines(fpath.format("test")), opt.height,
+                opt.width, [0, -1], 4, is_train=False, img_ext=img_ext)
+            self.train_loader = D.DataLoader(
+                train_ds, opt.batch_size, shuffle=True,
+                num_workers=opt.num_workers)
+            self.val_loader = D.DataLoader(
+                val_ds, opt.batch_size, shuffle=False,
+                num_workers=opt.num_workers, drop_last=False)
+            self.steps_per_epoch = len(self.train_loader)
+        else:
+            self.steps_per_epoch = 1000  # synthetic / smoke mode
+
+        # model and state: random init, then the ImageNet bootstrap of a
+        # from-scratch run (a checkpoint to resume from supersedes it)
+        self.model = RepDepth(opt)
+        init_weights(self.model, torch.Generator().manual_seed(0))
+        if opt.weights_init == "pretrained" and not opt.load_weights_folder:
+            from ..ckpt.pretrained import bootstrap_pretrained
+
+            bootstrap_pretrained(self.model, opt)
+        seed = opt.pytorch_random_seed or 0
+        self.state = create_train_state(
+            self.model, opt, device=device,
+            generator=torch.Generator(device).manual_seed(seed))
+        labels = freeze.param_labels(self.model, opt)
+        freeze.print_num_param(self.model, labels)
+        lr = 1e-6 if opt.freeze_pose else opt.learning_rate
+        self.optimizer, self.scheduler = schedule.make_optimizer(
+            [p for p in self.model.parameters() if p.requires_grad], lr,
+            self.steps_per_epoch, opt.scheduler_step_size)
+        if opt.load_weights_folder:
+            self.load_model(opt.load_weights_folder)
+        self.step_fn = make_train_step(self.model, opt, self.optimizer,
+                                       self.scheduler)
+        self._metrics_file = open(
+            os.path.join(self.log_path, "metrics.jsonl"), "a")
+
+    def close(self) -> None:
+        self._metrics_file.close()
+
+    # ------------------------------------------------------------------ #
+
+    def load_model(self, folder: str):
+        """Resume from a checkpoint folder: weights and BN statistics,
+        Adam and its schedule (not under --ktf, trainer.py:151), the depth
+        bins and the step count."""
+        track = ckpt_io.load_model(folder, self.model)
+        if not self.opt.ktf:
+            ckpt_io.load_adam(folder, self.optimizer, self.scheduler)
+        dev = self.state.device
+        self.state.min_depth_bin = torch.tensor(
+            track.get("min_depth_bin", 0.1), dtype=torch.float32, device=dev)
+        self.state.max_depth_bin = torch.tensor(
+            track.get("max_depth_bin", 10.0), dtype=torch.float32, device=dev)
+        self.state.step = int(track.get("step", 0))
+        print(f"loaded checkpoint from {folder} "
+              f"(bins {self.state.min_depth_bin.item():.3f}"
+              f"/{self.state.max_depth_bin.item():.3f})")
+
+    def save_model(self, suffix: str):
+        folder = os.path.join(self.log_path, f"{self.opt.name}_{suffix}")
+        ckpt_io.save_checkpoint(folder, self.model, self.optimizer,
+                                self.scheduler, self.state, self.opt)
+        print(f"saved checkpoint to {folder}")
+        return folder
+
+    def log_metrics(self, step: int, metrics: dict, prefix: str = "train"):
+        rec = {"step": step, "prefix": prefix}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self._metrics_file.write(json.dumps(rec) + "\n")
+        self._metrics_file.flush()
+
+    # ------------------------------------------------------------------ #
+
+    def train(self):
+        opt = self.opt
+        if self.train_loader is None:
+            raise ValueError("--data_path required to train")
+        step = self.state.step
+        t_last = time.perf_counter()
+        start_epoch = step // max(self.steps_per_epoch, 1)
+        for epoch in range(start_epoch, opt.num_epochs):
+            self.train_loader.set_epoch(epoch)
+            for batch in D.device_prefetch(iter(self.train_loader),
+                                           self.device):
+                self.state, metrics = self.step_fn(self.state, batch)
+                step = self.state.step
+                if step == 250 and opt.validate_every > 0:
+                    # early validation snapshot (trainer.py:366-381)
+                    self.validate(step)
+                if step % LOG_EVERY == 0:
+                    metrics = {k: v.item() for k, v in metrics.items()}
+                    dt = time.perf_counter() - t_last
+                    ips = LOG_EVERY * opt.batch_size / dt
+                    t_last = time.perf_counter()
+                    print(f"epoch {epoch} step {step} "
+                          f"loss {metrics['loss']:.4f} {ips:.1f} img/s")
+                    self.log_metrics(step, metrics)
+                if opt.validate_every > 0 and step % opt.validate_every == 0:
+                    self.validate(step)
+                    self.save_model(f"s{step}")
+        self.save_model("final")
+
+    def validate(self, step: int):
+        if self.val_loader is None:
+            return None
+        errors, mono_errors = evaluator.run_eval(
+            self.model, self.opt, iter(self.val_loader),
+            min_bin=self.state.min_depth_bin,
+            max_bin=self.state.max_depth_bin,
+            with_teacher=not self.opt.freeze_teacher_and_pose,
+            splits_dir=self.splits_dir, device=self.device)
+        print(f"[val @ {step}]\n" + M.format_metrics(errors))
+        self.log_metrics(step, dict(zip(M.METRIC_NAMES, errors)), prefix="val")
+        if mono_errors is not None:
+            print("[val mono]\n" + M.format_metrics(mono_errors))
+            self.log_metrics(step, dict(zip(M.METRIC_NAMES, mono_errors)),
+                             prefix="val_mono")
+        return errors

@@ -2,7 +2,8 @@
 PyTorch version, at the B=8 640x192 shapes of RepLKNet-31B (the stages of
 kernels A and B, the student's plane sweep for kernel C), at the training
 step's shapes (kernel A in f32 and as kernel #2's forward and dx, kernel
-D's photometric warp and its coordinate gradient) and at ragged edge
+D's photometric warp and its coordinate gradient), at the eval forward's
+shapes of kernel #3 (kernel A under --lk_backend pallas) and at ragged edge
 shapes.
 
 Marked `gpu`; every test skips without a CUDA device. Run on a card with
@@ -72,6 +73,30 @@ def test_lk_dwconv_matches_plain(cuda, B, C, H, W, k, bias):
     # room for f32 summation order over up to 961 taps
     err = (y.float() - ref).abs().max().item()
     assert err <= 1e-2 * ref.abs().max().item(), err
+
+
+# kernel #3 (the Pallas depthwise_conv2d_pallas) at the eval forward's
+# shapes under --lk_backend pallas: the stem's stride-1 3x3 at 96x320 and
+# each stage's large kernel and k=5, at a partial last eval batch (B=5)
+LK_PALLAS = [(128, 96, 320, 3), *STAGES, *((C, H, W, 5) for C, H, W, _ in STAGES)]
+
+
+@pytest.mark.parametrize("C,H,W,k", LK_PALLAS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lk_pallas_shapes_match_plain(cuda, dtype, C, H, W, k):
+    """Kernel A without bias against cuDNN: f32 within 1e-5 of the peak
+    (summation order only), bf16 within 1e-2 (output rounding)."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(5, H, W, C).astype(np.float32)).to(
+        cuda, dtype).permute(0, 3, 1, 2)
+    w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype(np.float32)).to(
+        cuda, dtype)
+    y = lk_depthwise(x, w)
+    torch.cuda.synchronize()
+    ref = depthwise_plain(x.float(), w.float())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (y.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
 
 
 @pytest.mark.parametrize("C,M,adapter", [

@@ -92,8 +92,6 @@ _NO_JAX = """
 import importlib
 import pkgutil
 import sys
-from types import SimpleNamespace
-
 import numpy as np
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "ppeadepth_tpu")
@@ -118,8 +116,8 @@ from ppeadepth_tpu_torch.train.schedule import make_optimizer
 from ppeadepth_tpu_torch.train.step import create_train_state, make_train_step
 import torch
 
-opt = SimpleNamespace(**{**vars(chip_smoke.TRAIN_B), "rep_size": "t",
-                         "height": 64, "width": 96, "compute_dtype": "float32"})
+opt = chip_smoke.TRAIN_B.replace(rep_size="t", height=64, width=96,
+                                 compute_dtype="float32")
 d = InferenceSession(opt, device="cpu", dtype="float32").predict_depth(
     np.zeros((1, 64, 96, 3), np.float32))
 assert d.shape == (1, 64, 96)

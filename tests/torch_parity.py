@@ -114,3 +114,35 @@ def strip(sd, prefix):
     """Sub-state_dict under `prefix.` with the prefix removed."""
     n = len(prefix) + 1
     return {k[n:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+KITTI_FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
+
+
+def kitti_set(root, n_items, n_test, seed=0, gt=True):
+    """A synthetic KITTI raw set on disk under `root` (Path), like
+    tests/test_trainer_e2e.py's: random 188x620 jpgs for frames 0 ..
+    n_items + 1 in the KITTI layout, the split "tiny" with `n_items`
+    training lines (frames 1 .. n_items, each with both neighbours) and
+    the first `n_test` as test lines, and (gt) a random gt_depths.npz of
+    the test items (depths of 1-70 m at ~30 % of the pixels). Returns
+    (data_path, splits_dir) as strings."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    data = root / "kitti" / KITTI_FOLDER / "image_02" / "data"
+    data.mkdir(parents=True)
+    for f in range(n_items + 2):
+        Image.fromarray((rng.rand(188, 620, 3) * 255).astype(np.uint8)).save(
+            str(data / f"{f:010d}.jpg"))
+    split = root / "splits" / "tiny"
+    split.mkdir(parents=True)
+    lines = [f"{KITTI_FOLDER} {i} l" for i in range(1, n_items + 1)]
+    (split / "train_files.txt").write_text("\n".join(lines))
+    (split / "test_files.txt").write_text("\n".join(lines[:n_test]))
+    if gt:
+        depth = rng.rand(n_test, 188, 620) * 69 + 1
+        mask = rng.rand(n_test, 188, 620) < 0.3
+        np.savez(str(split / "gt_depths.npz"),
+                 data=np.where(mask, depth, 0).astype(np.float32))
+    return str(root / "kitti"), str(root / "splits")
