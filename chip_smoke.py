@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # the checks below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
                                        # each path's device time
+    python3 chip_smoke.py --kernel B   # build, then kernel B's check and
+                                       # times alone (no "ok" line)
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
@@ -204,22 +206,58 @@ def check_lk_dwconv(dev, rng):
                 bound_by=bound.by, library_ms=plain_ms)
 
 
+def _time_turns(fns, iters):
+    """Warm CUDA-event times (ms per call) of each of `fns`, run in turns
+    forward then backward (a, b, c, c, b, a); each the mean of its two."""
+    import torch
+
+    def run(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    first = [run(fn) for fn in fns]
+    second = [run(fn) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+# kernel B's widest ConvFFNs beyond the shipped rep_size b: stage 3 of
+# rep_size l (C=1536) and xl (C=2048) at 640x192, B=8; checked, not summed
+# into the per-forward times
+B_WIDE = ((1536, 6, 20), (2048, 6, 20))
+
+
 def check_ffn_fused(dev, rng):
     """Kernel B against its plain version at the four stage shapes, with
-    the adapter (the main path) and without it. Times and bounds are per
-    teacher forward (the sum over its 24 calls, with the adapter)."""
+    the adapter (the main path) and without it, and at the L/XL widths of
+    `B_WIDE`. The kernel runs on the packed operands (`pack_ffn`, as
+    `ConvFFN.fold` stores them) and is held against the plain version on
+    the unpacked ones. Times and bounds are per teacher forward (the sum
+    over its 24 calls, with the adapter); beside them the two packed
+    products alone as bare bf16 `torch.mm` calls, the cuBLAS tensor-core
+    yardstick (`cublas_products_ms`)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.ffn_fused import (
-        FoldedFFN, ffn_fused, ffn_fused_plain)
+        FoldedFFN, ffn_fused, ffn_fused_plain, ffn_plan, pack_ffn)
 
     def t(shape, scale, dtype=torch.bfloat16):
         return torch.from_numpy(
             (rng.randn(*shape) * scale).astype("float32")).to(dev).to(dtype)
 
-    worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, _Bound()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, ms, plain_ms, mm_ms, bound = 0.0, 0.0, 0.0, 0.0, _Bound()
     cases = [(C, H, W, blocks, True) for C, H, W, _, blocks in _stage_shapes()]
     cases += [c[:4] + (False,) for c in cases]
+    cases += [(C, H, W, 0, True) for C, H, W in B_WIDE]
     for C, H, W, blocks, adapter in cases:
         M, H4, CA = BATCH * H * W, 4 * C, C // 4
         f32 = torch.float32
@@ -228,8 +266,9 @@ def check_ffn_fused(dev, rng):
                       *((t((C, CA), C ** -0.5), t((CA,), 0.1, f32),
                          t((CA, C), CA ** -0.5), t((C,), 0.1, f32))
                         if adapter else ()))
+        pk = pack_ffn(p)
         x = t((BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
-        y = ffn_fused(x, p)
+        y = ffn_fused(x, pk)
         torch.cuda.synchronize()
         pf = FoldedFFN(*(v.float() if v is not None else None for v in p))
         x2d = x.permute(0, 2, 3, 1).reshape(M, C)
@@ -237,29 +276,43 @@ def check_ffn_fused(dev, rng):
         diff = (y.permute(0, 2, 3, 1).reshape(M, C).float() - ref).abs()
         scale = ref.abs().max().item()
         mx, mean = diff.max().item(), diff.mean().item()
+        Hp = pk.w_up.shape[0]
+        tiles = ffn_plan(M, C, Hp, sms)
         tag = f"kernel B  [{M},{C}] adapter={adapter}"
         print(f"{tag}: max|d|={mx:.3e} max rel {mx / scale:.3e} "
               f"mean rel {mean / scale:.3e} (tol {B_MAX_REL_TOL:g} / "
-              f"{B_MEAN_REL_TOL:g})")
+              f"{B_MEAN_REL_TOL:g}); Hp={Hp}, tiles up/down {tiles}")
         if not (mx / scale < B_MAX_REL_TOL and mean / scale < B_MEAN_REL_TOL):
             raise AssertionError(f"kernel B disagrees at C={C}: {mx}, {mean}")
         worst = max(worst, mx)
-        pl, kk = _time_pair(lambda: ffn_fused_plain(x2d, p),
-                            lambda: ffn_fused(x, p), 20)
+        h = torch.empty((M, Hp), dtype=torch.bfloat16, device=dev)
+        wu, wd = pk.w_up.t(), pk.w_down.t()
+
+        def products():
+            torch.mm(x2d, wu, out=h)
+            return torch.mm(h, wd)
+
+        pl, kk, mm = _time_turns([lambda: ffn_fused_plain(x2d, p),
+                                  lambda: ffn_fused(x, pk), products], 20)
         ca = CA if adapter else 0
         flop = 2 * M * C * (2 * H4 + 2 * ca)
         nbytes = (2 * 2 * M * C + 2 * 2 * C * (H4 + ca)
                   + 4 * (H4 + C + (ca + C if adapter else 0)))
         bnd, by = _bound_ms(nbytes, flop, BF16_FLOP_PER_S)
         print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.1f} TFLOP/s), "
-              f"plain (cuBLAS bf16) {pl:.4f} ms/call, bound {bnd:.4f} ms "
+              f"plain (cuBLAS bf16) {pl:.4f} ms/call, packed products alone "
+              f"(2 bf16 torch.mm) {mm:.4f} ms/call, bound {bnd:.4f} ms "
               f"({by}), x{blocks} per forward")
         if adapter:
             ms += kk * blocks
             plain_ms += pl * blocks
+            mm_ms += mm * blocks
             bound.add(bnd, by, blocks)
+    print(f"kernel B per teacher forward (24 calls): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, packed products in cuBLAS {mm_ms:.4f} ms, "
+          f"bound {bound.ms:.4f} ms ({bound.by})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound.ms,
-                bound_by=bound.by, library_ms=None)
+                bound_by=bound.by, library_ms=None, cublas_products_ms=mm_ms)
 
 
 def _kitti_K(height, width, batch):
@@ -1356,7 +1409,7 @@ def eval_cli(folder, profile):
 def _category(name):
     n = name.lower()
     for key, cat in (("lk_dwconv", "kernel A (lk_dwconv; forward and dx)"),
-                     ("ffn_", "kernel B (ffn_fused + split epilogue)"),
+                     ("ffn_", "kernel B (ffn_gemm_kernel, up + down)"),
                      ("plane_sweep", "kernel C (plane_sweep)"),
                      ("warp_fwd_kernel", "kernel D (warp_border; forward and backward)"),
                      ("warp_bwd_kernel", "kernel D (warp_border; forward and backward)"),
@@ -1427,6 +1480,10 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "the port's smoke run needs a CUDA card")
+    args = sys.argv[1:]
+    only = args[args.index("--kernel") + 1] if "--kernel" in args[:-1] else None
+    if "--kernel" in args and only != "B":
+        raise SystemExit("chip_smoke: --kernel takes B (kernel B's check alone)")
     import numpy as np
 
     from ppeadepth_tpu_torch.kernels import build
@@ -1455,6 +1512,10 @@ def main():
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
+    if only == "B":
+        b = check_ffn_fused(dev, rng)
+        print(json.dumps({"kernel B only": b}))
+        return
     a = check_lk_dwconv(dev, rng)
     b = check_ffn_fused(dev, rng)
     c = check_plane_sweep(dev, rng)
@@ -1481,7 +1542,7 @@ def main():
     by_path = {"predict_depth": serve_teacher(sess, cpu, opt, requests),
                "predict_depth_multi": serve_student(sess, cpu, opt, requests),
                "predict_pose": serve_pose(sess, cpu, requests)}
-    profile = "--profile" in sys.argv[1:]
+    profile = "--profile" in args
     if profile:
         K, invK = _kitti_K(opt.height // 4, opt.width // 4, BATCH)
         profile_serving("predict_depth_multi",
@@ -1533,6 +1594,8 @@ def main():
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "times_per": per,
+            **({"cublas_products_ms": res["cublas_products_ms"]}
+               if "cublas_products_ms" in res else {}),
             "launches_by_path": {p: n[kname] for p, n in by_path.items()}})
     entries[-1]["name"] = "lk_dwconv (kernel #3)"
     print(json.dumps({"kernels": entries}))

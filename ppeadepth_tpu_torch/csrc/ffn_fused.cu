@@ -1,247 +1,300 @@
-// Fused deploy ConvFFN: BN-folded 1x1 matmul pair + channel adapter.
+// Kernel B: the deploy ConvFFN as two launches of one tensor-core GEMM.
 //
 // Replaces: ppeadepth_tpu/kernels/ffn_mxu.py `ffn_block_apply` (Pallas
 // body `_kernel_ffn`), the TPU kernel behind every ConvFFN of the merged
 // RepLKNet (models/replknet.py ConvFFN). Over rows of x [M, C]:
 //
-//   out = x + gelu(x W1 + b1) W2 + b2 [+ gelu(x A1 + a1) A2 + a2]
+//   out = x + gelu(x W1 + b1) W2 + b2 + gelu(x A1 + a1) A2 + a2
 //
-// with every BN already folded into W*/A*/b*/a* (ffn_mxu.py
-// `fold_ffn_params`). bf16 operands, f32 accumulation, bf16 output. GELU is
-// the exact erf form, as the lax ConvFFN (replknet.py:204) and the torch
+// with every BN already folded into W*/A*/b*/a* (kernels/ffn_fused.py
+// `fold_ffn_params`). The two branches have one form, so `pack_ffn` folds
+// the adapter into the main products once, when a session is built:
+// W_up = [W1 | A1], b_up = [b1 | a1], W_down = [W2 ; A2], b_down = b2 + a2,
+// one FFN of hidden width Hp = 4C + C/4, zero-padded to a multiple of 64
+// (gelu(0) = 0 and the padded rows of W_down are zero). Both weights are
+// stored K-major ([N, K], a row per output column). Two launches of the
+// GEMM below compute
+//
+//   up:   H   = gelu_erf(x W_up + b_up)      bf16 [M, Hp] (device memory)
+//   down: out = x + H W_down + b_down        bf16 [M, C]
+//
+// bf16 operands, f32 accumulation, a bf16 hidden, bf16 output. GELU is the
+// exact erf form, as the lax ConvFFN (replknet.py:204) and the torch
 // reference compute it; the TPU kernel used tanh-GELU only because Mosaic
 // lowers no erf (ffn_mxu.py:19-23).
 //
-// What bounds it on Hopper: the shapes are tensor-core bound, ~16*M*C^2
-// FLOP per block (4C hidden) plus the C/4 adapter, ~386 GFLOP per B=8
-// 640x192 teacher forward over its 24 blocks, while each row of x is read
-// and written once. This first version is bound instead by the latency of
-// its weight-fragment loads, which every warp issues straight from L2; its
-// measured times and rates are in PERF.md.
+// What bounds it on Hopper: operations. ~4.25 * 4 * M * C^2 FLOP per call,
+// ~386 GFLOP per B=8 640x192 teacher forward over its 24 blocks, a bound of
+// 0.415 ms at the 989 TFLOP/s bf16 tensor-core peak; the bytes (x, out and
+// the weights once) take a tenth of that. The hidden's round trip through
+// device memory (~1.0 GB per teacher forward, much of it L2-resident at
+// stages 2-3) costs ~0.3 ms at 3.35 TB/s, well under the products' time,
+// and buys any C that is a multiple of 64 with no split of the hidden.
 //
-// Design:
-//   * one block per 32 rows; the bf16 x tile and an f32 [32, C] output
-//     accumulator stay in shared memory for the whole block (at C=1024:
-//     66 KB + 132 KB, padded rows against bank conflicts; 206 KB in all
-//     with the hidden chunk, under the 227 KB a block may opt into);
-//   * the hidden width is walked in chunks of 64: h = gelu(x W1[:, chunk] +
-//     b1) is formed in shared memory and at once multiplied into the
-//     accumulator with W2[chunk, :], so the 4C intermediate never reaches
-//     device memory; the adapter branch (hidden C/4) runs the same loop;
-//   * products use nvcuda::wmma bf16 16x16x16 fragments; each warp reads
-//     its weight fragments straight from device memory (L2-resident across
-//     blocks), so eight warps' loads overlap each other's latency;
-//   * a few hundred rows at stages 2-3 make only M/32 blocks (120 and 30 on
-//     132 SMs), so there the hidden width is split across blocks as well:
-//     each writes its f32 partial [32, C] sum to a workspace and a second,
-//     elementwise kernel adds them in a fixed order with the residual and
-//     biases (deterministic; the 4C intermediate still never leaves the
-//     SM). The wrapper picks the split count from M and the SM count;
-//   * ragged M is masked: rows past M load as zero and are not stored.
-//
-// First, simple version: wmma (mma.sync) instead of wgmma, no TMA, no
-// multistage pipeline, weights re-read from L2 by every block, one block
-// per SM at C=1024. Faster forms are later work.
+// This is step 1 of the design: mma.sync from a shared-memory ring.
+//   * output tiles of BM x BN (128 or 64 each), picked per shape by the
+//     wrapper (`kernels/ffn_fused.py gemm_plan`) so a launch has about 132
+//     blocks or more: the stage-2/3 down products (few rows x C columns)
+//     take the smaller tiles;
+//   * K walks in tiles of 64 (128 bytes a row) through a ring of STAGES
+//     (3-4) shared-memory buffers of both operands in opted-in dynamic
+//     shared memory, filled by 16-byte cp.async copies STAGES-1 tiles
+//     ahead of the products; rows are stored with the 16-byte chunk index
+//     XOR (row % 8) (the 128-byte swizzle) so neither the copies nor the
+//     ldmatrix reads conflict on banks;
+//   * each warp reads its fragments with ldmatrix.x4 and multiplies with
+//     mma.sync.m16n8k16 bf16 -> f32;
+//   * the epilogue adds the bias in registers and applies erf-GELU (up) or
+//     adds the residual x (down), rounds to bf16 and stores pairs;
+//   * ragged M: rows past M are zero-filled by cp.async and not stored.
+// Not yet: wgmma, TMA, warp specialisation, a persistent grid (step 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BM = 32;        // rows per block
-constexpr int HC = 64;        // hidden chunk width
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int XPAD = 8;       // bf16 row padding of the x tile
-constexpr int YPAD = 4;       // f32 row padding of the accumulator
-constexpr int HPAD = 8;       // bf16 row padding of the hidden chunk
-constexpr int LDH = HC + HPAD;
-constexpr int MAX_C = 1024;
+constexpr int BK = 64;         // K per ring stage: 128 bytes of a row
+constexpr int CHUNKS = BK / 8; // 16-byte chunks per row of a stage
+constexpr int MAX_C = 2048;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; src_bytes 0 fills the 16 bytes with 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d[4] += a[4] (16x16 bf16, row) * b[2] (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of 16-byte chunk `ch` of row `row` in a [rows][BK] bf16 tile
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  return static_cast<uint32_t>(row * (BK * 2) + ((ch ^ (row & 7)) << 4));
+}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// ys[BM, C] += gelu(xs @ P1[:, lo:hi] + q1[lo:hi]) @ P2[lo:hi, :] for the
-// hidden columns [lo, hi) of a hidden width `hid`.
-// P1: [C, hid] row-major, q1: [hid] f32, P2: [hid, C] row-major.
-__device__ void ffn_branch(const bf16* xs, int ldx, float* ys, int ldy,
-                           bf16* hs, float* stage, const bf16* __restrict__ P1,
-                           const float* __restrict__ q1,
-                           const bf16* __restrict__ P2, int C, int hid,
-                           int lo, int hi, int warp, int lane) {
-  for (int n0 = lo; n0 < hi; n0 += HC) {
-    const int hc = min(HC, hi - n0);
-    const int tn1 = hc / 16;
-    // 1) hs = gelu(xs @ P1[:, n0:n0+hc] + q1[n0:n0+hc])  (bf16)
-    for (int t = warp; t < (BM / 16) * tn1; t += NWARPS) {
-      const int tm = t / tn1;
-      const int tn = t % tn1;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k = 0; k < C; k += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, xs + tm * 16 * ldx + k, ldx);
-        wmma::load_matrix_sync(b, P1 + (size_t)k * hid + n0 + tn * 16, hid);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      float* st = stage + warp * 256;
-      wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int rr = e / 16;
-        const int cc = e % 16;
-        const float v = st[e] + q1[n0 + tn * 16 + cc];
-        hs[(tm * 16 + rr) * LDH + tn * 16 + cc] = __float2bfloat16(gelu_erf(v));
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    // 2) ys += hs @ P2[n0:n0+hc, :]
-    const int tn2 = C / 16;
-    for (int t = warp; t < (BM / 16) * tn2; t += NWARPS) {
-      const int tm = t / tn2;
-      const int tn = t % tn2;
-      float* yp = ys + tm * 16 * ldy + tn * 16;
-      FragC acc;
-      wmma::load_matrix_sync(acc, yp, ldy, wmma::mem_row_major);
-      for (int k = 0; k < hc; k += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, hs + tm * 16 * LDH + k, LDH);
-        wmma::load_matrix_sync(b, P2 + (size_t)(n0 + k) * C + tn * 16, C);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(yp, acc, ldy, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-}
+// One BM x BN tile of out = epilogue(A[M, K] * Bt[N, K]^T + bias), A and
+// Bt row-major (K contiguous). UP: out = gelu(.) ; else out = . + res
+// (res [M, N]). K a multiple of BK, N a multiple of BN, M any.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, bool UP>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
+ffn_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt,
+                const float* __restrict__ bias, const bf16* __restrict__ res,
+                bf16* __restrict__ out, int M, int N, int K) {
+  constexpr int NT = WARPS_M * WARPS_N * 32;
+  constexpr int WTM = BM / WARPS_M;  // warp tile
+  constexpr int WTN = BN / WARPS_N;
+  constexpr int MI = WTM / 16;       // m16 tiles per warp
+  constexpr int NI = WTN / 8;        // n8 tiles per warp
+  constexpr int A_BYTES = BM * BK * 2;
+  constexpr int STAGE_BYTES = (BM + BN) * BK * 2;
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0, "warp tile");
+  static_assert(((BM + BN) * CHUNKS) % NT == 0, "copy split");
 
-__global__ void __launch_bounds__(NTHREADS)
-ffn_fused_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
-                 const bf16* __restrict__ w1, const float* __restrict__ b1,
-                 const bf16* __restrict__ w2, const float* __restrict__ b2,
-                 const bf16* __restrict__ a1, const float* __restrict__ ab1,
-                 const bf16* __restrict__ a2, const float* __restrict__ ab2,
-                 float* __restrict__ part, int M, int C, int H4, int CA,
-                 int chunks_per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = C + XPAD;
-  const int ldy = C + YPAD;
-  bf16* xs = reinterpret_cast<bf16*>(smem);                   // [BM][ldx]
-  float* ys = reinterpret_cast<float*>(xs + BM * ldx);        // [BM][ldy]
-  bf16* hs = reinterpret_cast<bf16*>(ys + BM * ldy);          // [BM][LDH]
-  float* stage = reinterpret_cast<float*>(hs + BM * LDH);     // [NWARPS][256]
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp / WARPS_N) * WTM;
+  const int wn = (warp % WARPS_N) * WTN;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int KT = K / BK;
 
-  for (int i = tid; i < BM * C; i += NTHREADS) {
-    const int r = i / C;
-    const int c = i % C;
-    const int row = row0 + r;
-    xs[r * ldx + c] = row < M ? x[(size_t)row * C + c] : __float2bfloat16(0.f);
-    ys[r * ldy + c] = 0.f;
-  }
-  __syncthreads();
-
-  const int lo = split * chunks_per_split * HC;
-  const int hi = min(H4, lo + chunks_per_split * HC);
-  ffn_branch(xs, ldx, ys, ldy, hs, stage, w1, b1, w2, C, H4, lo, hi, warp,
-             lane);
-  if (a1 != nullptr && split == 0) {
-    ffn_branch(xs, ldx, ys, ldy, hs, stage, a1, ab1, a2, C, CA, 0, CA, warp,
-               lane);
-  }
-
-  for (int i = tid; i < BM * C; i += NTHREADS) {
-    const int r = i / C;
-    const int c = i % C;
-    const int row = row0 + r;
-    if (row >= M) continue;
-    if (part != nullptr) {  // partial sum; ffn_epilogue_kernel finishes
-      part[((size_t)split * M + row) * C + c] = ys[r * ldy + c];
-      continue;
+  auto load_stage = [&](int stage, int kt) {
+    const uint32_t s = sbase + stage * STAGE_BYTES;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = tid; i < (BM + BN) * CHUNKS; i += NT) {
+      const int row = i / CHUNKS;
+      const int ch = i % CHUNKS;
+      if (row < BM) {
+        const int gr = m0 + row;
+        const bool ok = gr < M;
+        const bf16* src = A + (size_t)(ok ? gr : 0) * K + k0 + ch * 8;
+        cp_async16(s + swz(row, ch), src, ok ? 16 : 0);
+      } else {
+        const int r = row - BM;
+        const bf16* src = Bt + (size_t)(n0 + r) * K + k0 + ch * 8;
+        cp_async16(s + A_BYTES + swz(r, ch), src, 16);
+      }
     }
-    float v = __bfloat162float(xs[r * ldx + c]) + ys[r * ldy + c] + b2[c];
-    if (a1 != nullptr) v += ab2[c];
-    out[(size_t)row * C + c] = __float2bfloat16(v);
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's part)
+    __syncthreads();              // ... everyone's; stage kt-1 is free
+    const int nk = kt + STAGES - 1;
+    if (nk < KT) load_stage(nk % STAGES, nk);
+    cp_async_commit();
+
+    const uint32_t sa = sbase + (kt % STAGES) * STAGE_BYTES;
+    const uint32_t sb = sa + A_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[MI][4];
+      uint32_t bfr[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int row = wm + i * 16 + (lane & 15);
+        ldmatrix_x4(af[i], sa + swz(row, kk * 2 + (lane >> 4)));
+      }
+#pragma unroll
+      for (int j = 0; j < NI; j += 2) {
+        const int row = wn + j * 8 + ((lane >> 4) << 3) + (lane & 7);
+        uint32_t r[4];
+        ldmatrix_x4(r, sb + swz(row, kk * 2 + ((lane >> 3) & 1)));
+        bfr[j][0] = r[0];
+        bfr[j][1] = r[1];
+        bfr[j + 1][0] = r[2];
+        bfr[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+          mma_bf16_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    const int col = n0 + wn + j * 8 + (lane & 3) * 2;
+    const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm + i * 16 + (lane >> 2) + h * 8;
+        if (row >= M) continue;
+        float v0 = acc[i][j][2 * h] + bv.x;
+        float v1 = acc[i][j][2 * h + 1] + bv.y;
+        const size_t off = (size_t)row * N + col;
+        if (UP) {
+          v0 = gelu_erf(v0);
+          v1 = gelu_erf(v1);
+        } else {
+          const float2 r =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  res + off));
+          v0 += r.x;
+          v1 += r.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + off) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
   }
 }
 
-// out = x + sum over splits of part + b2 (+ ab2), summed in split order.
-__global__ void ffn_epilogue_kernel(const bf16* __restrict__ x,
-                                    const float* __restrict__ part,
-                                    const float* __restrict__ b2,
-                                    const float* __restrict__ ab2,
-                                    bf16* __restrict__ out, int M, int C,
-                                    int splits) {
-  const size_t n = (size_t)M * C;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c = (int)(i % C);
-  float v = __bfloat162float(x[i]) + b2[c];
-  if (ab2 != nullptr) v += ab2[c];
-  for (int s = 0; s < splits; ++s) v += part[s * n + i];
-  out[i] = __float2bfloat16(v);
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, bool UP>
+int launch_gemm(const bf16* A, const bf16* Bt, const float* bias,
+                const bf16* res, bf16* out, int M, int N, int K,
+                cudaStream_t stream) {
+  auto kernel = ffn_gemm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, UP>;
+  const int smem = STAGES * (BM + BN) * BK * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(N / BN, (M + BM - 1) / BM);
+  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(A, Bt, bias, res,
+                                                         out, M, N, K);
+  return (int)cudaGetLastError();
 }
+
+// The tiles the wrapper may pick, by index (kernels/ffn_fused.py TILES):
+// (BM, BN) = (128, 128), (128, 64), (64, 128), (64, 64).
+template <bool UP>
+int launch_tile(int tile, const bf16* A, const bf16* Bt, const float* bias,
+                const bf16* res, bf16* out, int M, int N, int K,
+                cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch_gemm<128, 128, 2, 4, 3, UP>(A, Bt, bias, res, out, M, N, K, s);
+    case 1: return launch_gemm<128, 64, 2, 2, 4, UP>(A, Bt, bias, res, out, M, N, K, s);
+    case 2: return launch_gemm<64, 128, 2, 2, 4, UP>(A, Bt, bias, res, out, M, N, K, s);
+    case 3: return launch_gemm<64, 64, 2, 2, 4, UP>(A, Bt, bias, res, out, M, N, K, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+constexpr int TILE_N[4] = {128, 64, 128, 64};
 
 }  // namespace
 
-// x, out: [M, C] bf16 rows; w1 [C, H4], w2 [H4, C], a1 [C, CA], a2 [CA, C]
-// bf16 row-major; b1 [H4], b2 [C], ab1 [CA], ab2 [C] f32. a1/ab1/a2/ab2 may
-// all be null (no adapter). C, H4, CA multiples of 16, C <= 1024; all
-// pointers 32-byte aligned. The hidden width runs in `splits` blocks per
-// 32 rows, `chunks_per_split` 64-wide chunks each; with splits > 1, `part`
-// is an f32 [splits, M, C] workspace and a second kernel adds the partial
-// sums. Returns cudaGetLastError().
-extern "C" int ppea_ffn_fused_bf16(const void* x, void* out, const void* w1,
-                                   const void* b1, const void* w2,
-                                   const void* b2, const void* a1,
-                                   const void* ab1, const void* a2,
-                                   const void* ab2, void* part, int M, int C,
-                                   int H4, int CA, int splits,
-                                   int chunks_per_split, void* stream) {
-  const int chunks = (H4 + HC - 1) / HC;
-  if (M < 1 || C < 16 || C > MAX_C || C % 16 || H4 < 16 || H4 % 16 ||
-      (a1 != nullptr && (CA < 16 || CA % 16)) || splits < 1 ||
-      chunks_per_split < 1 || (splits - 1) * chunks_per_split >= chunks ||
-      splits * chunks_per_split < chunks || (splits > 1) != (part != nullptr)) {
+// x, out: [M, C] bf16 rows; w_up [Hp, C] and w_down [C, Hp] bf16 K-major
+// (a row per output column); b_up [Hp], b_down [C] f32; hidden: a bf16
+// [M, Hp] workspace. C a multiple of 64 up to MAX_C, Hp a multiple of 64;
+// tile_up / tile_down index the tiles above, their BN dividing Hp / C; all
+// pointers 16-byte aligned. Launches the up then the down product on
+// `stream`; returns the first CUDA error code, 0 on success.
+extern "C" int ppea_ffn_fused_bf16(const void* x, const void* w_up,
+                                   const void* b_up, const void* w_down,
+                                   const void* b_down, void* hidden,
+                                   void* out, int M, int C, int Hp,
+                                   int tile_up, int tile_down, void* stream) {
+  if (M < 1 || C < 64 || C > MAX_C || C % 64 || Hp < 64 || Hp % 64 ||
+      tile_up < 0 || tile_up > 3 || tile_down < 0 || tile_down > 3 ||
+      Hp % TILE_N[tile_up] || C % TILE_N[tile_down]) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)BM * (C + XPAD) * sizeof(bf16) +
-                      (size_t)BM * (C + YPAD) * sizeof(float) +
-                      (size_t)BM * LDH * sizeof(bf16) +
-                      (size_t)NWARPS * 256 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + BM - 1) / BM, splits);
-  ffn_fused_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (bf16*)out, (const bf16*)w1, (const float*)b1,
-      (const bf16*)w2, (const float*)b2, (const bf16*)a1, (const float*)ab1,
-      (const bf16*)a2, (const float*)ab2, (float*)part, M, C, H4, CA,
-      chunks_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t n = (size_t)M * C;
-  ffn_epilogue_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                        (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)part, (const float*)b2,
-      (const float*)ab2, (bf16*)out, M, C, splits);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_tile<true>(tile_up, (const bf16*)x,
+                                    (const bf16*)w_up, (const float*)b_up,
+                                    nullptr, (bf16*)hidden, M, Hp, C, s);
+  if (err != 0) return err;
+  return launch_tile<false>(tile_down, (const bf16*)hidden,
+                            (const bf16*)w_down, (const float*)b_down,
+                            (const bf16*)x, (bf16*)out, M, C, Hp, s);
 }

@@ -24,6 +24,7 @@ def evaluate(opt, device="cuda", splits_dir: str = "./splits"):
     from .ckpt import io as ckpt_io
     from .eval import evaluator, metrics as M
     from .models import RepDepth, init_weights
+    from .models.repdepth import cudnn_without_tf32
     from .train.trainer import readlines, resolve_device
 
     opt = opt.with_mode_presets()
@@ -48,9 +49,11 @@ def evaluate(opt, device="cuda", splits_dir: str = "./splits"):
                           num_workers=opt.num_workers, drop_last=False)
 
     t0 = time.perf_counter()
-    errors, mono_errors = evaluator.run_eval(
-        model, opt, iter(loader), min_bin=min_bin, max_bin=max_bin,
-        with_teacher=opt.eval_teacher, splits_dir=splits_dir, device=device)
+    with cudnn_without_tf32():  # f32 convs in f32, as the JAX eval computes
+        errors, mono_errors = evaluator.run_eval(
+            model, opt, iter(loader), min_bin=min_bin, max_bin=max_bin,
+            with_teacher=opt.eval_teacher, splits_dir=splits_dir,
+            device=device)
     dt = time.perf_counter() - t0
     print(f"avg wall-clock per image: {dt / len(ds) * 1000:.2f} ms")
     print(M.format_metrics(errors))

@@ -36,10 +36,10 @@ _SIGNATURES = {
     # x, w, bias, y, B, H, W, C, K, stream
     "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, out, w1, b1, w2, b2, a1, ab1, a2, ab2, part, M, C, H4, CA,
-    # splits, chunks_per_split, stream
-    "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P),
+    # x, w_up, b_up, w_down, b_down, hidden, out, M, C, Hp, tile_up,
+    # tile_down, stream
+    "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
     # cur, lk, A, t, bins, out, B, H, W, C, D, bf16, stream
     "ppea_plane_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # img, coords, out, N, H, W, C, Ho, Wo, stream

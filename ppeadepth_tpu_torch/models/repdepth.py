@@ -35,9 +35,10 @@ from .resnet import ResnetEncoder
 _F32_MODULES = ("pose_encoder", "pose")
 
 
-def _cudnn_without_tf32():
-    """cuDNN's flags as they are, but TF32 off: the f32 pose net must not
-    round its conv inputs to TF32, torch's default for cuDNN convs."""
+def cudnn_without_tf32():
+    """cuDNN's flags as they are, but TF32 off, and the caller's restored on
+    exit: the f32 pose net and the f32 eval pass must not round their conv
+    inputs to TF32, torch's default for cuDNN convs."""
     c = torch.backends.cudnn
     return c.flags(enabled=c.enabled, benchmark=c.benchmark,
                    benchmark_limit=c.benchmark_limit,
@@ -111,7 +112,7 @@ class RepDepth(nn.Module):
         """Pose from a temporally ordered image pair [B, 3, H, W] each, in
         float32 with TF32 off and autocast off (JAX `_pose_pair`, without
         remat). Returns (axisangle, translation [B, 2, 1, 3], T [B, 4, 4])."""
-        with _cudnn_without_tf32(), torch.autocast(a.device.type, enabled=False):
+        with cudnn_without_tf32(), torch.autocast(a.device.type, enabled=False):
             feats = self.pose_encoder(torch.cat([a, b], 1).float())
             axisangle, translation = self.pose(feats)
             T = transformation_from_parameters(

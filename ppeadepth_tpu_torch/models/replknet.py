@@ -26,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.ffn_fused import FoldedFFN, ffn_fused, fold_ffn_params
+from ..kernels.ffn_fused import PackedFFN, ffn_fused, fold_ffn_params, pack_ffn
 from .adapters import BAdapter, ChannelAdapter
 from .blocks import ConvBN, DepthwiseConv, DropPath
 
@@ -124,16 +124,17 @@ class RepLKBlock(nn.Module):
         return res
 
 
-_FOLDED = FoldedFFN._fields
+_FOLDED = PackedFFN._fields
 
 
 class ConvFFN(nn.Module):
     """preffn_bn -> 1x1 -> erf-GELU -> 1x1, residual, plus
     `g_ffn * ChannelAdapter(preffn_bn(x))` (replknet_adapter.py:264-289).
 
-    `fold()` stores the BN-folded kernel-B operands as non-persistent
-    buffers (state_dict keeps the reference's names); from then on the
-    block runs as `kernels.ffn_fused.ffn_fused`."""
+    `fold()` stores the BN-folded kernel-B operands, packed (the adapter
+    folded into the main products), as non-persistent buffers (state_dict
+    keeps the reference's names); from then on the block runs as
+    `kernels.ffn_fused.ffn_fused`."""
 
     def __init__(self, channels: int, internal_channels: int,
                  adpt_test: int = -1, g_ffn: float = 1.0,
@@ -155,13 +156,14 @@ class ConvFFN(nn.Module):
 
     @torch.no_grad()
     def fold(self, dtype: torch.dtype) -> None:
-        p = fold_ffn_params(self.state_dict(), self.g_ffn, dtype=dtype)
+        p = pack_ffn(fold_ffn_params(self.state_dict(), self.g_ffn,
+                                     dtype=dtype))
         for name, t in p._asdict().items():
             setattr(self, "folded_" + name, t)
 
     def forward(self, x, drop_mask=None):
-        if self.folded_w1 is not None:
-            return ffn_fused(x, FoldedFFN(
+        if self.folded_w_up is not None:
+            return ffn_fused(x, PackedFFN(
                 *(getattr(self, "folded_" + n) for n in _FOLDED)))
         out = self.preffn_bn(x)
         adpt = self.mlp_adapter(out) if self.mlp_adapter is not None else None

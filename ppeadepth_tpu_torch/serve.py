@@ -9,9 +9,9 @@ Weights come from a state_dict, a checkpoint folder of the port's Trainer,
 or a reference `model.pth`, as in the JAX session (serve.py:36-72).
 
 The deploy form is built once: BN folded and the small kernel merged into
-the large one (`ckpt.deploy.structural_reparam`), every ConvFFN of both
-encoders folded into kernel-B operands, conv/linear weights cast to the
-compute dtype (the pose nets stay f32). On a CUDA device the large-kernel
+the large one (`ckpt.deploy.structural_reparam`), in bf16 every ConvFFN of
+both encoders folded into kernel-B operands, conv/linear weights cast to
+the compute dtype (the pose nets stay f32). On a CUDA device the large-kernel
 convs, ConvFFNs and the plane sweep run the hand-written kernels; on the
 CPU they run their plain versions.
 
@@ -87,7 +87,9 @@ class InferenceSession:
             model = RepDepth(opt, merged=True)
         model.load_state_dict(state_dict, strict=True)
         model.eval().to(self.device)
-        if merge_reparam:
+        if merge_reparam and self.dtype == torch.bfloat16:
+            # kernel B is bf16 only; merged f32 keeps the unfolded ConvFFN,
+            # as the JAX package keeps it on lax (ffn_mxu.resolve_ffn_backend)
             model.fold_ffn(self.dtype)
         cast_compute(model, self.dtype)
         self.model = model

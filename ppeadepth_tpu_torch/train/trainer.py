@@ -22,6 +22,7 @@ from .. import data as D
 from ..ckpt import io as ckpt_io
 from ..eval import evaluator, metrics as M
 from ..models import RepDepth, init_weights
+from ..models.repdepth import cudnn_without_tf32
 from . import freeze, schedule
 from .step import create_train_state, make_train_step
 
@@ -190,12 +191,13 @@ class Trainer:
     def validate(self, step: int):
         if self.val_loader is None:
             return None
-        errors, mono_errors = evaluator.run_eval(
-            self.model, self.opt, iter(self.val_loader),
-            min_bin=self.state.min_depth_bin,
-            max_bin=self.state.max_depth_bin,
-            with_teacher=not self.opt.freeze_teacher_and_pose,
-            splits_dir=self.splits_dir, device=self.device)
+        with cudnn_without_tf32():  # as evaluate_depth.evaluate
+            errors, mono_errors = evaluator.run_eval(
+                self.model, self.opt, iter(self.val_loader),
+                min_bin=self.state.min_depth_bin,
+                max_bin=self.state.max_depth_bin,
+                with_teacher=not self.opt.freeze_teacher_and_pose,
+                splits_dir=self.splits_dir, device=self.device)
         print(f"[val @ {step}]\n" + M.format_metrics(errors))
         self.log_metrics(step, dict(zip(M.METRIC_NAMES, errors)), prefix="val")
         if mono_errors is not None:

@@ -25,7 +25,10 @@ from ppeadepth_tpu_torch.kernels.ffn_fused import (
 from ppeadepth_tpu_torch.kernels.lk_conv import (
     depthwise_plain, lk_depthwise, lk_depthwise_train)
 from ppeadepth_tpu_torch.kernels.warp import warp_border, warp_border_plain
-from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
+from ppeadepth_tpu_torch.kernels.ffn_fused import fold_ffn_params
+from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS, ConvFFN
+from ppeadepth_tpu_torch.options import Config
+from ppeadepth_tpu_torch.serve import InferenceSession
 from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
 
 pytestmark = pytest.mark.gpu
@@ -105,8 +108,12 @@ def test_lk_pallas_shapes_match_plain(cuda, dtype, C, H, W, k):
     (STAGES[2][0], 8 * STAGES[2][1] * STAGES[2][2], True),
     (STAGES[3][0], 8 * STAGES[3][1] * STAGES[3][2], True),
     (STAGES[0][0], 8 * STAGES[0][1] * STAGES[0][2], False),
-    (STAGES[2][0], 8 * STAGES[2][1] * STAGES[2][2], False),  # split, no adapter
+    (STAGES[2][0], 8 * STAGES[2][1] * STAGES[2][2], False),
     (256, 100, True),            # ragged M (not a multiple of 32 rows)
+    (1536, 960, True),           # stage 3 of rep_size l, 640x192
+    (2048, 960, True),           # stage 3 of rep_size xl
+    (1024, 1000, True),          # M not a multiple of 64 or 128 rows
+    (192, 200, True),            # C of 64 but not 128 columns (l, stage 0)
 ])
 def test_ffn_fused_matches_plain(cuda, C, M, adapter):
     rng = np.random.RandomState(1)
@@ -137,6 +144,59 @@ def test_ffn_fused_matches_plain(cuda, C, M, adapter):
     assert diff.mean().item() / scale < 3e-3
 
 
+@pytest.mark.parametrize("C", [1536, 2048])
+def test_merged_convffn_wide_matches_plain(cuda, C):
+    """A merged bf16 ConvFFN of rep_size l (C=1536) and xl (C=2048), folded
+    and packed by `ConvFFN.fold`, on the kernel against the plain version
+    on its f32-folded operands, at the kernel B bounds."""
+    torch.manual_seed(C)
+    ffn = ConvFFN(C, 4 * C, adpt_test=4, g_ffn=0.7)
+    with torch.no_grad():
+        for name, t in ffn.state_dict().items():
+            if name.endswith("running_var"):
+                t.uniform_(0.5, 1.5)
+            elif t.is_floating_point():
+                t.normal_(0.0, 0.5 if t.dim() == 1 else 1.0 / t[0].numel() ** 0.5)
+    pf = fold_ffn_params(ffn.state_dict(), 0.7, dtype=torch.float32)
+    ffn = ffn.eval().to(cuda)
+    ffn.fold(torch.bfloat16)
+    x = torch.randn(2, 6, 20, C).to(cuda).bfloat16().permute(0, 3, 1, 2)
+    n0 = kernels.launch_counts["ffn_fused"]
+    with torch.inference_mode():
+        y = ffn(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["ffn_fused"] == n0 + 1
+    x2d = x.float().permute(0, 2, 3, 1).reshape(-1, C)
+    ref = ffn_fused_plain(x2d, FoldedFFN(*(t.to(cuda) if t is not None else None
+                                          for t in pf)))
+    diff = (y.float().permute(0, 2, 3, 1).reshape(-1, C) - ref).abs()
+    scale = ref.abs().max().item()
+    assert diff.max().item() / scale < 2.5e-2
+    assert diff.mean().item() / scale < 3e-3
+
+
+def test_merged_float32_session_serves(cuda):
+    """A merged f32 session (ConvFFNs unfolded, as JAX keeps merged f32 on
+    lax) answers predict_depth on the card within the serving bounds of
+    its CPU answer: |d disp| mean 5e-3, max 5e-2 (chip_smoke.py)."""
+    opt = Config(adapter=True, rep_size="t", height=64, width=96)
+    imgs = np.random.RandomState(7).rand(2, 64, 96, 3).astype(np.float32)
+    depths = []
+    for device in ("cuda", "cpu"):
+        sess = InferenceSession(opt, device=device, dtype="float32",
+                                generator=torch.Generator().manual_seed(0))
+        assert sess.model.mono_encoder.stages[0].blocks[1].folded_w_up is None
+        depths.append(sess.predict_depth(imgs))
+
+    def disp(d):
+        lo, hi = 1.0 / opt.max_depth, 1.0 / opt.min_depth
+        return (1.0 / d - lo) / (hi - lo)
+
+    dd = np.abs(disp(depths[0]) - disp(depths[1]))
+    assert np.isfinite(depths[0]).all()
+    assert dd.mean() <= 5e-3 and dd.max() <= 5e-2, (dd.mean(), dd.max())
+
+
 def test_wrappers_raise_on_cuda_float32(cuda):
     """Kernel A takes f32 now, but only with f32 weights: a mixed pair
     raises instead of falling back."""
@@ -146,6 +206,13 @@ def test_wrappers_raise_on_cuda_float32(cuda):
         lk_depthwise(x, w)
     with pytest.raises(TypeError):
         lk_depthwise(x.half(), w.half())
+    # kernel B is bf16 only: f32 raises (merged f32 serving does not fold)
+    C = 64
+    p = FoldedFFN(torch.zeros(C, 4 * C, device=cuda), torch.zeros(4 * C, device=cuda),
+                  torch.zeros(4 * C, C, device=cuda), torch.zeros(C, device=cuda))
+    xf = torch.zeros(1, C, 4, 4, device=cuda).to(memory_format=torch.channels_last)
+    with pytest.raises(TypeError):
+        ffn_fused(xf, p)
 
 
 def _t(rng, shape, scale, device, dtype):

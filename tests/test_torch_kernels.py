@@ -16,7 +16,8 @@ from ppeadepth_tpu.models.replknet import ConvFFN as JConvFFN
 from ppeadepth_tpu_torch import kernels
 from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.kernels.ffn_fused import (
-    FoldedFFN, ffn_fused, ffn_fused_plain, fold_ffn_params, hidden_splits)
+    K_TILE, TILES, FoldedFFN, ffn_fused, ffn_fused_plain,
+    ffn_packed_plain, ffn_plan, fold_ffn_params, pack_ffn)
 from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
 from tests.torch_parity import nhwc_to_torch, perturb, torch_to_nhwc
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -127,17 +128,56 @@ def test_fold_ffn_params_matches_jax(adpt_test):
         assert all(getattr(got, n) is None for n in FoldedFFN._fields[4:])
 
 
+@pytest.mark.parametrize("C", [16, 64, 1536])
+@pytest.mark.parametrize("adpt_test", [4, -1])
+def test_pack_ffn_plain_matches_unpacked(adpt_test, C):
+    """The packed operands (adapter folded into the main products, the
+    hidden zero-padded to the K tile, weights K-major) compute what the
+    folded ones do: in f32 within 1e-6 (summation order only)."""
+    rng = np.random.RandomState(C)
+    H4, CA = 4 * C, C // 4
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
+
+    ada = ((r(C, CA, scale=C ** -0.5), r(CA, scale=0.1),
+            r(CA, C, scale=CA ** -0.5), r(C, scale=0.1))
+           if adpt_test >= 0 else ())
+    p = FoldedFFN(r(C, H4, scale=C ** -0.5), r(H4, scale=0.1),
+                  r(H4, C, scale=H4 ** -0.5), r(C, scale=0.1), *ada)
+    pk = pack_ffn(p)
+    Hp = -(-(H4 + (CA if ada else 0)) // K_TILE) * K_TILE
+    assert pk.w_up.shape == (Hp, C) and pk.w_down.shape == (C, Hp)
+    assert all(t.is_contiguous() for t in pk)
+    x = torch.from_numpy(rng.rand(24, C).astype(np.float32))
+    torch.testing.assert_close(ffn_packed_plain(x, pk), ffn_fused_plain(x, p),
+                               rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("M,H4", [
     (61440, 512), (15360, 1024), (3840, 2048), (960, 4096), (100, 1024),
     (1, 64), (960, 16)])
-def test_hidden_splits_cover_every_chunk(M, H4):
-    """Kernel B's hidden split: every 64-wide chunk in exactly one split,
-    no split empty, one split where M alone fills a 132-SM card."""
-    splits, per = hidden_splits(M, H4, 132)
-    chunks = -(-H4 // 64)
-    assert (splits - 1) * per < chunks <= splits * per
-    if -(-M // 32) >= 2 * 132:
-        assert splits == 1
+def test_ffn_plan_covers_every_tile(M, H4):
+    """Kernel B's tile plan for both products of a ConvFFN of hidden width
+    H4 (C = H4/4, at least 64; packed hidden 4C + C/4 padded): the grid
+    (N / BN, ceil(M / BM)) covers every output element exactly once, each
+    block walks every K tile once, and a launch has at least 132 blocks
+    unless no tile that fits gives more."""
+    C = max(K_TILE, H4 // 4)
+    Hp = -(-(4 * C + C // 4) // K_TILE) * K_TILE
+    for N, K, tile in ((Hp, C, ffn_plan(M, C, Hp, 132)[0]),
+                       (C, Hp, ffn_plan(M, C, Hp, 132)[1])):
+        bm, bn = TILES[tile]
+        rows = np.zeros(M, np.int64)
+        cols = np.zeros(N, np.int64)
+        for m0 in range(0, -(-M // bm) * bm, bm):
+            rows[m0:m0 + bm] += 1
+        for n0 in range(0, N // bn * bn, bn):
+            cols[n0:n0 + bn] += 1
+        assert (rows == 1).all() and (cols == 1).all()
+        assert K % K_TILE == 0
+        blocks = [-(-M // b) * (N // n) for b, n in TILES if N % n == 0]
+        assert -(-M // bm) * (N // bn) >= min(132, max(blocks))
 
 
 def _ffn_operands(dtype=torch.float32, c=16, adapter=True):
@@ -162,6 +202,12 @@ def test_wrappers_route_cpu_to_plain():
     p = _ffn_operands()
     y = ffn_fused(x, p)
     ref = ffn_fused_plain(x.permute(0, 2, 3, 1).reshape(-1, 16), p)
+    torch.testing.assert_close(y.permute(0, 2, 3, 1).reshape(-1, 16), ref,
+                               rtol=0, atol=0)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    pk = pack_ffn(p)
+    y = ffn_fused(x, pk)
+    ref = ffn_packed_plain(x.permute(0, 2, 3, 1).reshape(-1, 16), pk)
     torch.testing.assert_close(y.permute(0, 2, 3, 1).reshape(-1, 16), ref,
                                rtol=0, atol=0)
     assert y.is_contiguous(memory_format=torch.channels_last)
@@ -191,6 +237,9 @@ _W = torch.zeros(16, 1, 5, 5)
      TypeError),
     (lambda: ffn_fused(_x(), _ffn_operands()._replace(a2=None)), ValueError),
     (lambda: ffn_fused(_x(layout="nchw"), _ffn_operands()), ValueError),
+    (lambda: ffn_fused(_x(torch.bfloat16), pack_ffn(_ffn_operands())),
+     TypeError),
+    (lambda: ffn_fused(_x(), pack_ffn(_ffn_operands(c=32))), ValueError),
 ])
 def test_wrappers_reject_bad_inputs(call, exc):
     with pytest.raises(exc):

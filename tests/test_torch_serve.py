@@ -76,14 +76,16 @@ def test_session_bfloat16_cpu_close_to_float32():
     the card to."""
     g = torch.Generator().manual_seed(0)
     imgs = np.random.RandomState(6).rand(2, TINY.height, TINY.width, 3)
-    d32 = InferenceSession(TINY, device="cpu", dtype="float32",
-                           generator=g).predict_depth(imgs)
+    s32 = InferenceSession(TINY, device="cpu", dtype="float32", generator=g)
+    d32 = s32.predict_depth(imgs)
+    # merged f32 keeps the unfolded ConvFFN (kernel B is bf16 only)
+    assert s32.model.mono_encoder.stages[0].blocks[1].folded_w_up is None
     g = torch.Generator().manual_seed(0)
     sess = InferenceSession(TINY, device="cpu", dtype="bfloat16", generator=g)
     d16 = sess.predict_depth(imgs)
     ffn = sess.model.mono_encoder.stages[0].blocks[1]
-    assert ffn.folded_w1.dtype == torch.bfloat16
-    assert ffn.folded_b1.dtype == torch.float32
+    assert ffn.folded_w_up.dtype == torch.bfloat16
+    assert ffn.folded_b_up.dtype == torch.float32
     assert sess.model.mono_depth.disp_convs[0].conv.weight.dtype == torch.float32
     assert np.abs(_disp(d16) - _disp(d32)).mean() < 5e-3
 

@@ -228,7 +228,7 @@ def test_bfloat16_session_keeps_pose_nets_float32():
     assert m.pose_encoder.encoder.conv1.weight.dtype == torch.float32
     assert m.pose.net[3].weight.dtype == torch.float32
     assert m.encoder.reduce_conv[0].weight.dtype == torch.bfloat16
-    assert m.encoder.replk.stages[0].blocks[1].folded_w1.dtype == torch.bfloat16
+    assert m.encoder.replk.stages[0].blocks[1].folded_w_up.dtype == torch.bfloat16
     assert m.depth.disp_convs[0].conv.weight.dtype == torch.float32
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ppeadepth_tpu.eval.metrics import METRIC_NAMES as JAX_METRIC_NAMES
+from ppeadepth_tpu_torch.eval import evaluator
 from ppeadepth_tpu_torch.evaluate_depth import evaluate
 from ppeadepth_tpu_torch.options import Config
 from ppeadepth_tpu_torch.train import __main__ as cli
@@ -113,3 +114,29 @@ def test_cli_needs_a_card(tmp_path, monkeypatch):
         cli.main(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate(Config(rep_size="t", height=64, width=96))
+
+
+@pytest.mark.parametrize("entry", ["evaluate", "validate"])
+def test_eval_pass_runs_without_tf32(run, monkeypatch, entry):
+    """The eval's device pass (`evaluate`, `Trainer.validate`) runs with
+    cuDNN TF32 off, as the JAX eval computes f32 convs, and the caller's
+    flag is the same after it as before."""
+    trainer, opt, splits = run
+    seen = []
+    run_eval = evaluator.run_eval
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return run_eval(*a, **kw)
+
+    monkeypatch.setattr(evaluator, "run_eval", spy)
+    monkeypatch.setattr(trainer, "log_metrics", lambda *a, **kw: None)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    if entry == "evaluate":
+        final = os.path.join(trainer.log_path, "smoke_final")
+        evaluate(opt.replace(load_weights_folder=final), device="cpu",
+                 splits_dir=splits)
+    else:
+        trainer.validate(trainer.state.step)
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 is True
