@@ -334,9 +334,13 @@ int launch_gemm(const bf16* A, const bf16* Bt, const float* bias,
   if (err != 0) return err;
   auto kernel = ffn_gemm_kernel<BN, NC, UP>;
   const int smem = STAGES * (BM + BN) * BK * 2 + 2 * STAGES * 8 + 1024;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  static bool opted_in = false;  // the shared-memory opt-in, once
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
   const dim3 grid(N / BN, (M + BM - 1) / BM);
   kernel<<<grid, NC * 128 + 32, smem, stream>>>(tmA, tmB, bias, res, out, M,
                                                 N, K);
