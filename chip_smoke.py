@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
                                        # each path's device time
     python3 chip_smoke.py --kernel B   # build, then kernel B's check and
-                                       # times alone (no "ok" line)
+                                       # times alone, its launches profiled
+                                       # and its host time (no "ok" line)
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
@@ -100,9 +101,9 @@ SHIPPED_B = Config(adapter=True, rep_size="b", height=192, width=640)
 TRAIN_B = SHIPPED_B.replace(compute_dtype="bfloat16")
 
 
-def _time_pair(plain, kernel, iters):
-    """Warm CUDA-event times (ms per call) in turns plain, kernel, kernel,
-    plain; returns (plain_ms, kernel_ms), each the mean of its two turns."""
+def _time_turns(fns, iters):
+    """Warm CUDA-event times (ms per call) of each of `fns`, run in turns
+    forward then backward (a, b, c, c, b, a); each the mean of its two."""
     import torch
 
     def run(fn):
@@ -115,11 +116,17 @@ def _time_pair(plain, kernel, iters):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    plain()
-    kernel()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+    first = [run(fn) for fn in fns]
+    second = [run(fn) for fn in reversed(fns)][::-1]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def _time_pair(plain, kernel, iters):
+    """(plain_ms, kernel_ms) per call, timed in turns by `_time_turns`."""
+    return tuple(_time_turns([plain, kernel], iters))
 
 
 def _bound_ms(nbytes, flop, peak):
@@ -206,29 +213,6 @@ def check_lk_dwconv(dev, rng):
                 bound_by=bound.by, library_ms=plain_ms)
 
 
-def _time_turns(fns, iters):
-    """Warm CUDA-event times (ms per call) of each of `fns`, run in turns
-    forward then backward (a, b, c, c, b, a); each the mean of its two."""
-    import torch
-
-    def run(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    first = [run(fn) for fn in fns]
-    second = [run(fn) for fn in reversed(fns)][::-1]
-    return [(a + b) / 2 for a, b in zip(first, second)]
-
-
 # kernel B's widest ConvFFNs beyond the shipped rep_size b: stage 3 of
 # rep_size l (C=1536) and xl (C=2048) at 640x192, B=8; checked, not summed
 # into the per-forward times
@@ -313,6 +297,54 @@ def check_ffn_fused(dev, rng):
           f"bound {bound.ms:.4f} ms ({bound.by})")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound.ms,
                 bound_by=bound.by, library_ms=None, cublas_products_ms=mm_ms)
+
+
+def profile_ffn_launches(dev, rng):
+    """`--kernel B` only: per stage shape (with the adapter), the device
+    time of each of kernel B's two launches (up, down) beside cuBLAS's
+    two launches of the packed products (torch.profiler), and the host
+    time of one `ffn_fused` call, enqueued behind a busy device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppeadepth_tpu_torch.kernels.ffn_fused import (
+        FoldedFFN, ffn_fused, pack_ffn)
+
+    def t(shape, scale, dtype=torch.bfloat16):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype("float32")).to(dev).to(dtype)
+
+    for C, H, W, _, _ in _stage_shapes():
+        M, H4, CA = BATCH * H * W, 4 * C, C // 4
+        f32 = torch.float32
+        pk = pack_ffn(FoldedFFN(
+            t((C, H4), C ** -0.5), t((H4,), 0.1, f32), t((H4, C), H4 ** -0.5),
+            t((C,), 0.1, f32), t((C, CA), C ** -0.5), t((CA,), 0.1, f32),
+            t((CA, C), CA ** -0.5), t((C,), 0.1, f32)))
+        x = t((BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
+        x2d = x.permute(0, 2, 3, 1).reshape(M, C)
+        h = torch.empty((M, pk.w_up.shape[0]), dtype=torch.bfloat16, device=dev)
+        for _ in range(3):
+            ffn_fused(x, pk)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                ffn_fused(x, pk)
+                torch.mm(x2d, pk.w_up.t(), out=h)
+                torch.mm(h, pk.w_down.t())
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total > 0 and "Memset" not in e.key:
+                print(f"kernel B launches [{M},{C}]: {e.device_time_total / e.count:.2f} "
+                      f"us x{e.count}: {e.key[:100]}")
+        torch.cuda._sleep(1_000_000)  # keep the device busy while enqueuing
+        t0 = time.perf_counter()
+        for _ in range(50):
+            ffn_fused(x, pk)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        print(f"kernel B host [{M},{C}]: {host_us:.1f} us per ffn_fused call "
+              f"(wrapper, 4 tensor maps, 2 launches)")
 
 
 def _kitti_K(height, width, batch):
@@ -1514,6 +1546,7 @@ def main():
     rng = np.random.RandomState(SEED)
     if only == "B":
         b = check_ffn_fused(dev, rng)
+        profile_ffn_launches(dev, rng)
         print(json.dumps({"kernel B only": b}))
         return
     a = check_lk_dwconv(dev, rng)

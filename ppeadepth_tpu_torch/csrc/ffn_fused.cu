@@ -31,9 +31,7 @@
 // stages 2-3) costs ~0.3 ms at 3.35 TB/s, well under the products' time,
 // and buys any C that is a multiple of 64 with no split of the hidden.
 //
-// This is step 2 of the design: wgmma (sm_90a) fed by TMA. (Step 1, the
-// same ring filled by cp.async and read by ldmatrix + mma.sync, is in the
-// history of this file.)
+// This is step 2 of the design: wgmma (sm_90a) fed by TMA.
 //   * output tiles of BM x BN, BM = 64 per consumer warpgroup (1 or 2),
 //     BN 64 or 128, picked per shape by the wrapper (`kernels/ffn_fused.py
 //     gemm_plan`) so a launch has about 132 blocks or more: the stage-2/3
@@ -42,7 +40,7 @@
 //     shared-memory buffers of both operands in opted-in dynamic shared
 //     memory; one producer warp keeps the ring full with TMA tile loads
 //     (128-byte swizzle, rows past M zero-filled), each stage guarded by a
-//     full and an empty mbarrier; tensor maps come from the driver's
+//     full and an empty mbarrier; tensor maps come from libcuda's
 //     cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
 //     library links nothing new;
 //   * each consumer warpgroup multiplies its 64 rows with
@@ -289,7 +287,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
