@@ -4,6 +4,10 @@
     python3 chip_smoke.py              # the checks below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
                                        # each path's device time
+    python3 chip_smoke.py --kernel A   # build, then kernel A's three checks
+                                       # (teacher, #2, #3) alone and its
+                                       # launches profiled beside cuDNN's at
+                                       # every main-path shape (no "ok" line)
     python3 chip_smoke.py --kernel B   # build, then kernel B's check and
                                        # times alone, its launches profiled
                                        # and its host time (no "ok" line)
@@ -345,6 +349,64 @@ def profile_ffn_launches(dev, rng):
         torch.cuda.synchronize()
         print(f"kernel B host [{M},{C}]: {host_us:.1f} us per ffn_fused call "
               f"(wrapper, 4 tensor maps, 2 launches)")
+
+
+def _lk_shapes():
+    """(B, H, W, C, k) of every kernel A call of the main paths: the
+    teacher's stages at B=8, the training step's convs at B=12 and the
+    eval's (the stem's k=3 included) at B=12."""
+    shapes = {(BATCH, H, W, C, k) for C, H, W, k, _ in _stage_shapes()}
+    shapes |= {(TRAIN_BATCH, H, W, C, k)
+               for C, H, W, k, _, _ in _train_lk_calls(TRAIN_B)}
+    shapes |= {(EVAL_BATCH, H, W, C, k)
+               for C, H, W, k, _ in _eval_lk_calls(SHIPPED_B)}
+    return sorted(shapes, key=lambda s: (s[4], -s[1]))
+
+
+def profile_lk_launches(dev, rng):
+    """`--kernel A` only: per main-path shape and type, the device time
+    of one kernel A launch (forward, and dx on the flipped kernel) beside
+    cuDNN's depthwise `F.conv2d` (torch.profiler, us per launch), with the
+    launch's plan and its multiply-add rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import (
+        _input_grad, depthwise_plain, lk_depthwise)
+
+    for B, H, W, C, k in _lk_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(rng.randn(B, H, W, C).astype("float32")).to(
+                dev).to(dtype).permute(0, 3, 1, 2)
+            w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype(
+                "float32")).to(dev).to(dtype)
+            for _ in range(2):
+                lk_depthwise(x, w), _input_grad(x, w), depthwise_plain(x, w)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    lk_depthwise(x, w)
+                    _input_grad(x, w)
+                    depthwise_plain(x, w)
+                torch.cuda.synchronize()
+            ours = lib = 0.0
+            for e in prof.key_averages():
+                if e.device_time_total <= 0 or "Memset" in e.key:
+                    continue
+                if "lk_dwconv" in e.key:
+                    ours += e.device_time_total
+                else:
+                    lib += e.device_time_total
+            ours, lib = ours / 20, lib / 10
+            macs = _dw_macs(B, H, W, C, k)
+            bnd, by = _bound_ms(x.element_size() * (2 * B * H * W * C + C * k * k),
+                                2 * macs, F32_FLOP_PER_S)
+            print(f"kernel A launch [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: "
+                  f"{ours:.2f} us (forward and dx), cuDNN {lib:.2f} us, "
+                  f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}); "
+                  f"{macs / ours / 1e6:.2f} T multiply-adds/s "
+                  f"({100 * 2 * macs / ours / 1e6 / (F32_FLOP_PER_S / 1e12):.1f} % "
+                  f"of f32 FMA)")
 
 
 def _kitti_K(height, width, batch):
@@ -1514,8 +1576,9 @@ def main():
                          "the port's smoke run needs a CUDA card")
     args = sys.argv[1:]
     only = args[args.index("--kernel") + 1] if "--kernel" in args[:-1] else None
-    if "--kernel" in args and only != "B":
-        raise SystemExit("chip_smoke: --kernel takes B (kernel B's check alone)")
+    if "--kernel" in args and only not in ("A", "B"):
+        raise SystemExit("chip_smoke: --kernel takes A or B (that kernel's "
+                         "checks alone)")
     import numpy as np
 
     from ppeadepth_tpu_torch.kernels import build
@@ -1539,11 +1602,18 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{build.build_log.get('seconds', 0.0):.2f} s) -> {build.BUILD_DIR}")
     for line in build.build_log.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(key in line for key in ("registers", "Compiling entry", "spill")):
             print("ptxas:", line.strip())
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
+    if only == "A":
+        res = {"kernel A (teacher)": check_lk_dwconv(dev, rng),
+               "kernel #2": check_lk_train(dev, rng),
+               "kernel #3": check_lk_pallas(dev, rng)}
+        profile_lk_launches(dev, rng)
+        print(json.dumps({"kernel A only": res}))
+        return
     if only == "B":
         b = check_ffn_fused(dev, rng)
         profile_ffn_launches(dev, rng)
