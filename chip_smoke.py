@@ -7,7 +7,8 @@
     python3 chip_smoke.py --kernel A   # build, then kernel A's three checks
                                        # (teacher, #2, #3) alone and its
                                        # launches profiled beside cuDNN's at
-                                       # every main-path shape (no "ok" line)
+                                       # every main-path shape (no "ok" line;
+                                       # --sweep: times of other tiles too)
     python3 chip_smoke.py --kernel B   # build, then kernel B's check and
                                        # times alone, its launches profiled
                                        # and its host time (no "ok" line)
@@ -372,7 +373,7 @@ def profile_lk_launches(dev, rng):
     from torch.profiler import ProfilerActivity, profile
 
     from ppeadepth_tpu_torch.kernels.lk_conv import (
-        _input_grad, depthwise_plain, lk_depthwise)
+        _input_grad, depthwise_plain, lk_depthwise, lk_plan)
 
     for B, H, W, C, k in _lk_shapes():
         for dtype in (torch.bfloat16, torch.float32):
@@ -406,7 +407,33 @@ def profile_lk_launches(dev, rng):
                   f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}); "
                   f"{macs / ours / 1e6:.2f} T multiply-adds/s "
                   f"({100 * 2 * macs / ours / 1e6 / (F32_FLOP_PER_S / 1e12):.1f} % "
-                  f"of f32 FMA)")
+                  f"of f32 FMA); plan {lk_plan(B, H, W, C, k, dtype)}")
+
+
+def sweep_lk_plans(dev, rng):
+    """`--kernel A --sweep` only: per main-path shape and type, the
+    forward's time (CUDA events, in turns) under the best plan `lk_plans`
+    ranks for each strip count, so the plan's model can be held against
+    the card."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import _launch, lk_plans
+
+    for B, H, W, C, k in _lk_shapes():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(rng.randn(B, H, W, C).astype("float32")).to(
+                dev).to(dtype).permute(0, 3, 1, 2)
+            w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype(
+                "float32")).to(dev).to(dtype)
+            plans, seen = [], set()
+            for p in lk_plans(B, H, W, C, k, dtype):
+                if p.tws not in seen and len(plans) < 6:
+                    seen.add(p.tws)
+                    plans.append(p)
+            ms = _time_turns([lambda p=p: _launch(x, w, None, "lk_dwconv", plan=p)
+                              for p in plans], 10)
+            print(f"kernel A sweep [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: " + "; ".join(
+                f"th={p.th} tws={p.tws} {t * 1e3:.1f} us" for p, t in zip(plans, ms)))
 
 
 def _kitti_K(height, width, batch):
@@ -1612,6 +1639,8 @@ def main():
                "kernel #2": check_lk_train(dev, rng),
                "kernel #3": check_lk_pallas(dev, rng)}
         profile_lk_launches(dev, rng)
+        if "--sweep" in args:
+            sweep_lk_plans(dev, rng)
         print(json.dumps({"kernel A only": res}))
         return
     if only == "B":

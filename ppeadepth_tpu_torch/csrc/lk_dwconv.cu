@@ -1,63 +1,80 @@
-// Large-kernel depthwise convolution: the merged RepLKNet deploy form, and
-// the forward and input gradient of the training form.
+// Depthwise convolution, small to large kernels: the merged RepLKNet deploy
+// form, the forward and input gradient of the training form, and the eval's
+// stride-1 depthwise convs (the stem's 3x3 included).
 //
-// Replaces: ppeadepth_tpu/kernels/banded_conv.py `banded_depthwise`
-// (Pallas body `_kernel`), the TPU kernel behind every merged
-// `large_kernel.lkb_reparam` conv (models/replknet.py ReparamLKConv), and
-// `banded_depthwise_train` (:152), whose forward and d/dx (:173-178, the
-// same conv on the spatially flipped kernel) run the same Pallas body.
+// Replaces: ppeadepth_tpu/kernels/banded_conv.py `banded_depthwise` (:287,
+// Pallas body `_kernel`), the TPU kernel behind every merged
+// `large_kernel.lkb_reparam` conv (models/replknet.py ReparamLKConv);
+// `banded_depthwise_train` (:152), whose forward and d/dx (:173-178, the same
+// conv on the spatially flipped kernel) run the same Pallas body; and
+// kernels/lk_conv_pallas.py `depthwise_conv2d_pallas` (:70).
 //
 //   y[b, h, w, c] = sum_{dy, dx} x[b, h + dy - k/2, w + dx - k/2, c] * w[c, dy, dx]
 //                   (+ bias[c])
 //
 // SAME zero padding, stride 1, any odd k <= 31; NHWC memory (an NCHW tensor
-// in torch.channels_last). Two instantiations with the same loop: bf16 in
-// and out with bf16 weights, and f32 throughout (the training path's f32
-// compute); both accumulate in f32.
+// in torch.channels_last). bf16 in and out with bf16 weights, or f32
+// throughout; both accumulate in f32. `flip` reads w[c, k-1-dy, k-1-dx]
+// in place, so the input gradient needs no flipped copy of the kernel.
 //
-// What bounds it on Hopper: CUDA-core FMAs. Each input value is reused k*k
-// times (961 at k=31): at B=8, 640x192 the 24 merged convs hold ~48 G
-// multiply-adds before clipping, against ~0.25 GB of activation traffic, so
-// the f32 FMA rate (33.5 T multiply-adds/s) and not memory is the limit.
-// The TPU form rewrote the conv as banded Toeplitz matmuls only because the
-// MXU is the TPU's sole fast unit; on Hopper that spends W/k more FLOPs for
-// nothing, so this is a direct conv. Its measured times and rates are in
-// PERF.md.
+// What bounds it on Hopper, by k:
+//   * k <= 7 (the stem's 3x3, every block's 5x5 small kernel): bytes. At
+//     k=3 an output takes 9 multiply-adds per 2 or 4 bytes in and out; the
+//     card reaches its 3.35 TB/s only with many 16-byte loads in flight, so
+//     the "wide" instances take 128 bytes of channels per block (64 bf16,
+//     32 f32), use little shared memory and few registers, and so hold
+//     several blocks on each SM whose loads overlap the others' FMAs;
+//   * k >= 13 (the large kernels): CUDA-core FMAs. Each input value is
+//     reused up to k*k times (961 at k=31), against which the halo's load
+//     is a few per cent. The "narrow" instances take 32 bytes of channels
+//     per block (16 bf16, 8 f32), so that the k*k weights (31 KB at k=31)
+//     and a halo of up to ~80 KB fit twice on an SM: two resident blocks,
+//     one loading while the other multiplies.
+//   The tensor cores stay idle: a depthwise conv has no reduction over
+//   channels to feed them.
 //
-// Design:
-//   * one block per (image, 8x16 output tile, channel group); lane =
-//     channel, so every global load and store is contiguous along C. bf16
-//     takes 32 channels per block (a warp per output row), f32 16 (a warp
-//     per two output rows) so that its halo and weights still fit;
-//   * the block's halo tile ((8+k-1) x (16+k-1) channels, 112 KB in bf16
-//     and f32 at k=31) and its k*k weights per channel (62 KB) sit in
-//     dynamic shared memory, above the 48 KB static limit, hence the
-//     cudaFuncSetAttribute opt-in; the halo arrives as 16-byte vectors when
-//     C is a multiple of the vector width;
-//   * per kernel row each thread holds the 16+k-1 input values of its row
-//     in registers and runs k x 16 FMAs on them (one shared load per ~10
-//     FMAs), so shared-memory bandwidth does not bound the loop;
-//   * taps are clipped to the valid input: rows outside the image are never
-//     loaded nor multiplied (at stages 2-3 k exceeds H: 27 > 12, 13 > 6),
-//     and kernel columns whose whole 16-wide span is padding are skipped.
+// Design (one template for all k; `lk_plan` in kernels/lk_conv.py picks the
+// tile and the host launches with its numbers):
+//   * k is a template parameter for the configurations' sizes (3, 5, 7, 13,
+//     27, 29, 31); one instance takes any other odd k <= 31 at run time,
+//     with the same tiling and a tap loop that reads its weights from
+//     shared memory;
+//   * a block = one image, a TH x (TWS * TWT) output tile and CB channels;
+//     a thread = two neighbouring channels (bf16x2 / float2 shared loads)
+//     of TWT = 10 neighbouring outputs of one row, so 10 divides every
+//     stage width (320, 160, 80, 40, 20) and no thread column idles. The
+//     plan chooses TH and TWS per shape: at stages 2-3 TH is the whole
+//     image height;
+//   * shared memory holds the block's k*k weights, staged by threads that
+//     walk each channel's contiguous k*k run (coalesced reads) and write it
+//     transposed to [tap][channel], and the halo rows that exist,
+//     min(TH + k - 1, H), as 16-byte vectors; halo rows outside the image
+//     are neither stored nor multiplied. The narrow layout's row pitch is
+//     padded to 1 mod 4 pixels so the four pixels a warp reads fall in
+//     four different bank quarters;
+//   * per kernel row a thread keeps that row's k weight pairs in registers
+//     and streams the TWT + k - 1 input pairs past them, k * TWT * 2 FMAs
+//     per 2k + TWT - 1 shared loads, fully unrolled with no predicate;
+//     kernel rows are clipped to those landing inside the image;
+//   * __launch_bounds__(256, 2) for the narrow instances (at most 128
+//     registers a thread: k=31 keeps 62 of them for its weights) and
+//     (256, 4) for the wide ones (at most 64), so two or four 256-thread
+//     blocks are resident whenever the plan's shared memory fits beside
+//     them.
 //
 // Where it runs: all four encoder stages. The JAX package gated its banded
 // kernel to stages 0-1 (banded_conv.py `stage_backends`) because of the
 // TPU's 128-lane tile padding at W <= 40; that limit has no Hopper
-// counterpart.
-//
-// First, simple version: no tensor cores (a depthwise conv has no
-// reduction over channels to feed them), no cp.async/TMA pipelining, one
-// resident block per SM at k=31. Faster forms are later work.
+// counterpart. Measured times and rates are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int KMAX = 31;  // largest supported kernel
-constexpr int TH = 8;     // output rows per block
-constexpr int TW = 16;    // output columns per thread
+constexpr int KMAX = 31;          // largest supported kernel
+constexpr int TWT = 10;           // output columns per thread
+constexpr int MAX_THREADS = 256;  // per block (lk_plan keeps to it)
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -67,155 +84,235 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
 }
 template <> __device__ __forceinline__ float from_f32(float v) { return v; }
 
-// T: element type; CG: channels per block (one per lane of a row group)
-template <typename T, int CG>
-__global__ void __launch_bounds__(TH * CG)
-lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ bias, T* __restrict__ y,
-                 int H, int W, int C, int K, int tiles_w) {
-  constexpr int NTHREADS = TH * CG;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int half = K / 2;
-  const int HH = TH + K - 1;
-  const int WW = TW + K - 1;
-  T* xs = reinterpret_cast<T*>(smem);  // [HH][WW][CG]
-  T* ws = xs + HH * WW * CG;           // [K*K][CG]
+// two neighbouring channels from shared memory, as floats
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void fma2(float2& acc, float2 x, float2 w) {
+  acc.x = fmaf(x.x, w.x, acc.x);
+  acc.y = fmaf(x.y, w.y, acc.y);
+}
 
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.y * CG;
+// T: element type; K: kernel size, or 0 for the run-time instance (k_rt);
+// CB: channels per block. Tile: TH rows x TWS strips of TWT columns.
+// `rows`, `pitch`: the halo's allocated rows and its row pitch in pixels.
+template <typename T, int K, int CB>
+__global__ void __launch_bounds__(MAX_THREADS, CB * sizeof(T) == 128 ? 4 : 2)
+lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ y, int H, int W,
+                 int C, int k_rt, int flip, int TH, int TWS, int tiles_w,
+                 int pitch) {
+  constexpr int L = CB / 2;            // threads per pixel (channel pairs)
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int VPP = CB / VEC;        // vectors per pixel
+  const int k = K > 0 ? K : k_rt;
+  const int half = k / 2;
+  const int kk = k * k;
+  const int TW = TWT * TWS;
+  const int WW = TW + k - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ws = reinterpret_cast<T*>(smem);  // [k*k][CB]
+  T* xs = ws + kk * CB;                // [rows][pitch][CB]
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const int h0 = (blockIdx.x / tiles_w) * TH;
   const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int tid = threadIdx.x;
-  const int lane = tid % CG;
-  const int r = tid / CG;
+  const int c0 = blockIdx.y * CB;
+  const int b = blockIdx.z;
   const T zero = from_f32<T>(0.f);
 
-  // Halo rows holding real input; rows outside the image are never read.
-  const int row_lo = max(0, half - h0);
-  const int row_hi = min(HH - 1, H - 1 - h0 + half);
-  const int n_rows = row_hi - row_lo + 1;
+  // weights: consecutive threads read consecutive elements of the group's
+  // contiguous [CB][k*k] run; stored as [tap][channel], flipped if asked
+  {
+    const T* wg = w + (size_t)c0 * kk;
+    const int n = min(CB, C - c0) * kk;
+    for (int i = tid; i < CB * kk; i += nthreads) {
+      const int c = i / kk;
+      const int t = i - c * kk;
+      ws[(flip ? kk - 1 - t : t) * CB + c] = i < n ? wg[i] : zero;
+    }
+  }
+  // the halo rows inside the image
+  const int ih_lo = max(0, h0 - half);
+  const int ih_hi = min(H - 1, h0 + TH - 1 + half);
+  const int n_rows = ih_hi - ih_lo + 1;
+  const int iw0 = w0 - half;
   if (C % VEC == 0) {
-    // 16-byte vectors: VEC channels of one pixel per thread
-    constexpr int VPP = CG / VEC;
-    for (int i = tid; i < n_rows * WW * VPP; i += NTHREADS) {
+    for (int i = tid; i < n_rows * WW * VPP; i += nthreads) {
       const int v = i % VPP;
       const int p = i / VPP;
       const int col = p % WW;
-      const int row = row_lo + p / WW;
-      const int ih = h0 - half + row;
-      const int iw = w0 - half + col;
+      const int row = p / WW;
+      const int iw = iw0 + col;
       const int c = c0 + v * VEC;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (iw >= 0 && iw < W && c < C) {
-        val = *reinterpret_cast<const uint4*>(
-            x + ((size_t)(b * H + ih) * W + iw) * C + c);
+        val = __ldg(reinterpret_cast<const uint4*>(
+            x + ((size_t)(b * H + ih_lo + row) * W + iw) * C + c));
       }
-      *reinterpret_cast<uint4*>(xs + (row * WW + col) * CG + v * VEC) = val;
+      *reinterpret_cast<uint4*>(xs + (row * pitch + col) * CB + v * VEC) = val;
     }
   } else {
-    for (int i = tid; i < n_rows * WW * CG; i += NTHREADS) {
-      const int cc = i % CG;
-      const int p = i / CG;
+    for (int i = tid; i < n_rows * WW * CB; i += nthreads) {
+      const int cc = i % CB;
+      const int p = i / CB;
       const int col = p % WW;
-      const int row = row_lo + p / WW;
-      const int ih = h0 - half + row;
-      const int iw = w0 - half + col;
+      const int row = p / WW;
+      const int iw = iw0 + col;
       const int c = c0 + cc;
       T v = zero;
       if (iw >= 0 && iw < W && c < C) {
-        v = x[((size_t)(b * H + ih) * W + iw) * C + c];
+        v = x[((size_t)(b * H + ih_lo + row) * W + iw) * C + c];
       }
-      xs[(row * WW + col) * CG + cc] = v;
+      xs[(row * pitch + col) * CB + cc] = v;
     }
-  }
-  for (int i = tid; i < K * K * CG; i += NTHREADS) {
-    const int cc = i % CG;
-    const int t = i / CG;
-    const int c = c0 + cc;
-    ws[i] = c < C ? w[(size_t)c * K * K + t] : zero;
   }
   __syncthreads();
 
+  const int lane = tid % L;
+  const int r = (tid / L) % TH;
+  const int s = tid / (L * TH);
   const int oh = h0 + r;
-  if (oh >= H) return;
+  const int ow0 = w0 + s * TWT;
+  const int c = c0 + 2 * lane;
+  if (oh >= H || s >= TWS || ow0 >= W || c >= C) return;
 
-  float acc[TW];
+  float2 acc[TWT];
 #pragma unroll
-  for (int j = 0; j < TW; ++j) acc[j] = 0.f;
+  for (int j = 0; j < TWT; ++j) acc[j] = make_float2(0.f, 0.f);
 
   // kernel rows landing inside the image for this output row
   const int dy_lo = max(0, half - oh);
-  const int dy_hi = min(K - 1, H - 1 - oh + half);
-  // kernel columns touching at least one real input column of the tile
-  const int col_lo = max(0, half - w0);
-  const int col_hi = min(WW - 1, W - 1 - w0 + half);
-  const int dx_lo = max(0, col_lo - (TW - 1));
-  const int dx_hi = min(K - 1, col_hi);
-
+  const int dy_hi = min(k - 1, H - 1 - oh + half);
   for (int dy = dy_lo; dy <= dy_hi; ++dy) {
-    const T* xrow = xs + (r + dy) * WW * CG + lane;
-    const T* wrow = ws + dy * K * CG + lane;
-    float xr[TW + KMAX - 1];
+    const T* xp = xs + ((oh + dy - half - ih_lo) * pitch + s * TWT) * CB + 2 * lane;
+    const T* wp = ws + dy * k * CB + 2 * lane;
+    if constexpr (K > 0) {
+      float2 wv[K];
 #pragma unroll
-    for (int col = 0; col < TW + KMAX - 1; ++col) {
-      xr[col] = col < WW ? to_f32(xrow[col * CG]) : 0.f;
-    }
+      for (int dx = 0; dx < K; ++dx) wv[dx] = load2(wp + dx * CB);
 #pragma unroll
-    for (int dx = 0; dx < KMAX; ++dx) {
-      if (dx >= dx_lo && dx <= dx_hi) {
-        const float wv = to_f32(wrow[dx * CG]);
+      for (int m = 0; m < TWT + K - 1; ++m) {
+        const float2 xv = load2(xp + m * CB);
 #pragma unroll
-        for (int j = 0; j < TW; ++j) acc[j] = fmaf(xr[j + dx], wv, acc[j]);
+        for (int j = 0; j < TWT; ++j) {
+          if (m - j >= 0 && m - j < K) fma2(acc[j], xv, wv[m - j]);
+        }
+      }
+    } else {
+      for (int dx = 0; dx < k; ++dx) {
+        const float2 wv = load2(wp + dx * CB);
+#pragma unroll
+        for (int j = 0; j < TWT; ++j) fma2(acc[j], load2(xp + (j + dx) * CB), wv);
       }
     }
   }
 
-  const int c = c0 + lane;
-  if (c >= C) return;
-  const float bv = bias != nullptr ? to_f32(bias[c]) : 0.f;
+  float b0 = 0.f, b1 = 0.f;
+  if (bias != nullptr) {
+    b0 = to_f32(bias[c]);
+    b1 = c + 1 < C ? to_f32(bias[c + 1]) : 0.f;
+  }
+  T* yp = y + ((size_t)(b * H + oh) * W + ow0) * C + c;
 #pragma unroll
-  for (int j = 0; j < TW; ++j) {
-    const int ow = w0 + j;
-    if (ow < W) {
-      y[((size_t)(b * H + oh) * W + ow) * C + c] = from_f32<T>(acc[j] + bv);
+  for (int j = 0; j < TWT; ++j) {
+    if (ow0 + j >= W) break;
+    if (C % 2 == 0) {
+      store2(yp + (size_t)j * C, acc[j].x + b0, acc[j].y + b1);
+    } else {
+      yp[(size_t)j * C] = from_f32<T>(acc[j].x + b0);
+      if (c + 1 < C) yp[(size_t)j * C + 1] = from_f32<T>(acc[j].y + b1);
     }
   }
 }
 
-template <typename T, int CG>
+template <typename T, int K, int CB>
 int launch(const void* x, const void* w, const void* bias, void* y, int B,
-           int H, int W, int C, int K, void* stream) {
-  if (K < 1 || K > KMAX || K % 2 == 0 || B < 1 || H < 1 || W < 1 || C < 1) {
-    return (int)cudaErrorInvalidValue;
+           int H, int W, int C, int k, int flip, int TH, int TWS, int pitch,
+           int smem, void* stream) {
+  static int opted_in = 48 * 1024;  // dynamic shared memory allowed so far
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lk_dwconv_kernel<T, K, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = smem;
   }
   const int tiles_h = (H + TH - 1) / TH;
-  const int tiles_w = (W + TW - 1) / TW;
-  const size_t smem =
-      (size_t)((TH + K - 1) * (TW + K - 1) * CG + K * K * CG) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      lk_dwconv_kernel<T, CG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tiles_h * tiles_w, (C + CG - 1) / CG, B);
-  lk_dwconv_kernel<T, CG><<<grid, TH * CG, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w, (const T*)bias, (T*)y, H, W, C, K, tiles_w);
+  const int tiles_w = (W + TWT * TWS - 1) / (TWT * TWS);
+  const dim3 grid(tiles_h * tiles_w, (C + CB - 1) / CB, B);
+  lk_dwconv_kernel<T, K, CB><<<grid, (CB / 2) * TH * TWS, smem,
+                               (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w, (const T*)bias, (T*)y, H, W, C, k, flip, TH,
+      TWS, tiles_w, pitch);
   return (int)cudaGetLastError();
+}
+
+// The instances: wide (128 bytes of channels) for k <= 7, narrow (32 bytes)
+// for the large kernels, and the run-time-k instance in both widths.
+template <typename T>
+int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
+             int H, int W, int C, int k, int flip, int TH, int TWS, int cb,
+             int pitch, int smem, void* stream) {
+  constexpr int WIDE = 128 / sizeof(T);
+  constexpr int NARROW = 32 / sizeof(T);
+  const int threads = (cb / 2) * TH * TWS;
+  if (k < 1 || k > KMAX || k % 2 == 0 || B < 1 || B > 65535 || H < 1 ||
+      W < 1 || C < 1 || TH < 1 || TWS < 1 || threads > MAX_THREADS ||
+      (cb != WIDE && cb != NARROW) || pitch < TWT * TWS + k - 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define PPEA_LK(KV, CBV) \
+  launch<T, KV, CBV>(x, w, bias, y, B, H, W, C, k, flip, TH, TWS, pitch, smem, stream)
+  if (cb == WIDE) {
+    switch (k) {
+      case 3: return PPEA_LK(3, WIDE);
+      case 5: return PPEA_LK(5, WIDE);
+      case 7: return PPEA_LK(7, WIDE);
+      default: return PPEA_LK(0, WIDE);
+    }
+  }
+  switch (k) {
+    case 13: return PPEA_LK(13, NARROW);
+    case 27: return PPEA_LK(27, NARROW);
+    case 29: return PPEA_LK(29, NARROW);
+    case 31: return PPEA_LK(31, NARROW);
+    default: return PPEA_LK(0, NARROW);
+  }
+#undef PPEA_LK
 }
 
 }  // namespace
 
 // x, y: [B, H, W, C] (NHWC memory, 16-byte aligned); w: [C, K, K]; bias:
-// [C] or null; all bf16 (`_bf16`) or all f32 (`_f32`). Launches on `stream`
-// and returns cudaGetLastError().
+// [C] or null; all bf16 (`_bf16`) or all f32 (`_f32`). flip != 0 convolves
+// with w[c, K-1-dy, K-1-dx]. TH, TWS, cb (channels per block), pitch and
+// smem (bytes) are lk_plan's. Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments no instance takes).
 extern "C" int ppea_lk_dwconv_bf16(const void* x, const void* w,
                                    const void* bias, void* y, int B, int H,
-                                   int W, int C, int K, void* stream) {
-  return launch<__nv_bfloat16, 32>(x, w, bias, y, B, H, W, C, K, stream);
+                                   int W, int C, int K, int flip, int TH,
+                                   int TWS, int cb, int pitch, int smem,
+                                   void* stream) {
+  return dispatch<__nv_bfloat16>(x, w, bias, y, B, H, W, C, K, flip, TH, TWS,
+                                 cb, pitch, smem, stream);
 }
 
 extern "C" int ppea_lk_dwconv_f32(const void* x, const void* w,
                                   const void* bias, void* y, int B, int H,
-                                  int W, int C, int K, void* stream) {
-  return launch<float, 16>(x, w, bias, y, B, H, W, C, K, stream);
+                                  int W, int C, int K, int flip, int TH,
+                                  int TWS, int cb, int pitch, int smem,
+                                  void* stream) {
+  return dispatch<float>(x, w, bias, y, B, H, W, C, K, flip, TH, TWS, cb,
+                         pitch, smem, stream);
 }

@@ -33,9 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w, bias, y, B, H, W, C, K, stream
-    "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, bias, y, B, H, W, C, K, flip, TH, TWS, cb, pitch, smem, stream
+    "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, *(_I,) * 11, _P),
+    "ppea_lk_dwconv_f32": (_P, _P, _P, _P, *(_I,) * 11, _P),
     # x, w_up, b_up, w_down, b_down, hidden, out, M, C, Hp, tile_up,
     # tile_down, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -90,11 +90,15 @@ def _run_all(cmds):
 def build() -> Path:
     """Compile the kernel library if no build of these sources exists;
     returns its path. Records the compile time and ptxas report in
-    `build_log`."""
+    `build_log` (the report is kept beside the library, so a process that
+    finds the library built still has it)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libppea_kernels_{_digest()}.so"
+    ptxas_path = lib_path.with_suffix(".ptxas.txt")
     if lib_path.exists():
         build_log.setdefault("seconds", 0.0)
+        if ptxas_path.exists():  # built by another process: its report
+            build_log.setdefault("ptxas", ptxas_path.read_text())
         return lib_path
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -104,6 +108,9 @@ def build() -> Path:
                              for s, o in zip(SOURCES, objs)])
         tmp = str(Path(tmp_dir) / lib_path.name)
         _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        tmp_ptxas = Path(tmp_dir) / ptxas_path.name
+        tmp_ptxas.write_text("".join(r[3] for r in compiled))
+        os.replace(tmp_ptxas, ptxas_path)
         os.replace(tmp, lib_path)
     build_log["seconds"] = time.perf_counter() - t0
     build_log["command"] = "\n".join(" ".join(r[0]) for r in compiled)

@@ -16,7 +16,8 @@ bytes), weights torch's depthwise [C, 1, k, k].
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +26,101 @@ from . import launch_counts
 from .build import check, library
 
 MAX_K = 31
+
+# csrc/lk_dwconv.cu's tiling (keep in step with the source)
+TWT = 10              # output columns per thread
+MAX_THREADS = 256     # per block; __launch_bounds__ caps registers at ...
+REG_CAP = {True: 64, False: 128}  # ... these, wide and narrow instances
+WIDE_MAX_K = 11       # k up to this takes the wide (128-byte) channel group
+SMS = 132             # H100 SXM
+SMEM_PER_SM = 233472  # bytes of shared memory on an SM ...
+SMEM_PER_BLOCK = 232448  # ... and the most one block may opt into
+SMEM_RESERVED = 1024  # the system's share of each resident block
+REGS_PER_SM = 65536
+THREADS_PER_SM = 2048
+
+
+class LKPlan(NamedTuple):
+    """One launch of kernel A: blocks of `th` output rows by `tws` strips of
+    `twt` columns and `cb` channels, `threads` each; the halo holds `rows`
+    rows of `pitch` pixels; `smem` bytes of dynamic shared memory;
+    `blocks_per_sm` resident (registers counted at their REG_CAP)."""
+    th: int
+    tws: int
+    twt: int
+    cb: int
+    threads: int
+    rows: int
+    pitch: int
+    smem: int
+    tiles_h: int
+    tiles_w: int
+    groups: int
+    grid: tuple
+    blocks_per_sm: int
+
+
+def _make_plan(B, H, W, C, k, esize, th, tws):
+    wide = k <= WIDE_MAX_K
+    cb = (128 if wide else 32) // esize
+    tw = TWT * tws
+    ww = tw + k - 1
+    # the narrow layout's row pitch is 1 mod 4 pixels: a warp's four
+    # 32-byte pixels of four rows fall in four bank quarters
+    pitch = ww if wide else ww + (1 - ww) % 4
+    rows = min(th + k - 1, H)
+    smem = (k * k + rows * pitch) * cb * esize
+    threads = cb // 2 * th * tws
+    tiles_h, tiles_w, groups = -(-H // th), -(-W // tw), -(-C // cb)
+    bps = min((SMEM_PER_SM // (smem + SMEM_RESERVED)),
+              REGS_PER_SM // (threads * REG_CAP[wide]),
+              THREADS_PER_SM // threads, 32)
+    return LKPlan(th, tws, TWT, cb, threads, rows, pitch, smem, tiles_h,
+                  tiles_w, groups, (tiles_h * tiles_w, groups, B), bps)
+
+
+def _plan_cost(p, B, H, W, k):
+    """A model of a plan's time, in units of its ideal (lower is better):
+    wave quantisation over the SMs, threads short of the SM's fill, and
+    per real output either the bytes staged and written (wide, k <= 11:
+    bound by bytes) or the FMAs spent on tile padding plus the halo's
+    staging (narrow: bound by FMAs)."""
+    blocks = p.tiles_h * p.tiles_w * p.groups * B
+    slots = SMS * p.blocks_per_sm
+    wave = -(-blocks // slots) * slots / blocks
+    outputs = H * W
+    staged = p.tiles_h * p.tiles_w * p.rows * (p.twt * p.tws + k - 1)
+    padded = p.tiles_h * p.th * p.tiles_w * p.twt * p.tws
+    if k <= WIDE_MAX_K:
+        occ = min(1.0, p.threads * p.blocks_per_sm / 1024)
+        return wave * (1 + staged / outputs) / occ
+    occ = min(1.0, p.threads * p.blocks_per_sm / 512)
+    taps = min(k, H) * min(k, W)
+    return wave * (padded / outputs + 4 * staged / outputs / taps) / occ
+
+
+@functools.lru_cache(maxsize=None)
+def lk_plans(B: int, H: int, W: int, C: int, k: int, dtype) -> tuple:
+    """Kernel A's launches for x [B, C, H, W] and a k x k kernel of `dtype`
+    (torch.bfloat16 or torch.float32), best first by `_plan_cost`: every
+    tile of at most MAX_THREADS threads whose shared memory fits, only
+    those with two or more resident blocks per SM where there are any."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    lanes = (128 if k <= WIDE_MAX_K else 32) // esize // 2
+    cands = [_make_plan(B, H, W, C, k, esize, t, s)
+             for t in range(1, min(H, 64) + 1)
+             for s in range(1, -(-W // TWT) + 1)
+             if lanes * t * s <= MAX_THREADS]
+    cands = [p for p in cands if p.smem <= SMEM_PER_BLOCK and p.blocks_per_sm >= 1]
+    if any(p.blocks_per_sm >= 2 for p in cands):
+        cands = [p for p in cands if p.blocks_per_sm >= 2]
+    return tuple(sorted(cands, key=lambda p: (_plan_cost(p, B, H, W, k), -p.threads)))
+
+
+def lk_plan(B: int, H: int, W: int, C: int, k: int, dtype) -> LKPlan:
+    """The launch kernel A takes for these shapes: the first of `lk_plans`.
+    Pure Python: the CPU tests check that it covers every output once."""
+    return lk_plans(B, H, W, C, k, dtype)[0]
 
 
 def fuse_conv_bn(kernel, gamma, beta, mean, var, eps: float = 1e-5):
@@ -87,18 +183,23 @@ def _validate(x, w, b):
 _ENTRY = {torch.bfloat16: "ppea_lk_dwconv_bf16", torch.float32: "ppea_lk_dwconv_f32"}
 
 
-def _launch(x, w, b, counter: str):
-    """Kernel A on validated CUDA tensors; counts the launch under
-    `counter`."""
+def _launch(x, w, b, counter: str, flip: bool = False, plan=None):
+    """Kernel A on validated CUDA tensors (on `w` flipped in both spatial
+    axes if `flip`), with `lk_plan`'s launch unless `plan` is given;
+    counts the launch under `counter`."""
     B, C, H, W = x.shape
+    k = w.shape[-1]
     if x.data_ptr() % 16:
         raise ValueError("lk_depthwise: x must be 16-byte aligned")
+    if B > 65535:
+        raise ValueError(f"lk_depthwise: at most 65535 images, got {B}")
+    p = plan or lk_plan(B, H, W, C, k, x.dtype)
     y = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     entry = _ENTRY[x.dtype]
     err = getattr(library(), entry)(
         x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), B, H, W, C, w.shape[-1],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), B, H, W, C, k, int(flip), p.th, p.tws, p.cb, p.pitch,
+        p.smem, torch.cuda.current_stream(x.device).cuda_stream)
     check(err, entry)
     launch_counts[counter] += 1
     return y.permute(0, 3, 1, 2)
@@ -118,14 +219,14 @@ def lk_depthwise(x, w, b: Optional[torch.Tensor] = None):
 
 def _input_grad(g, w):
     """d/dx of the SAME conv: the same conv of the output gradient with the
-    spatially flipped kernel (banded_conv.py:173-178). Autograd's gradient
-    need not be channels_last: the copy to it is part of this step."""
+    spatially flipped kernel (banded_conv.py:173-178), which kernel A reads
+    in place. Autograd's gradient need not be channels_last: the copy to it
+    is part of this step."""
     g = g.contiguous(memory_format=torch.channels_last)
-    wf = w.flip(-1, -2).contiguous()
-    _validate(g, wf, None)
+    _validate(g, w, None)
     if not g.is_cuda:
-        return depthwise_plain(g, wf)
-    return _launch(g, wf, None, "lk_dwconv_dx")
+        return depthwise_plain(g, w.flip(-1, -2))
+    return _launch(g, w, None, "lk_dwconv_dx", flip=True)
 
 
 class _LKDepthwiseTrain(torch.autograd.Function):

@@ -23,7 +23,7 @@ from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_pla
 from ppeadepth_tpu_torch.kernels.ffn_fused import (
     FoldedFFN, ffn_fused, ffn_fused_plain)
 from ppeadepth_tpu_torch.kernels.lk_conv import (
-    depthwise_plain, lk_depthwise, lk_depthwise_train)
+    _input_grad, depthwise_plain, lk_depthwise, lk_depthwise_train)
 from ppeadepth_tpu_torch.kernels.warp import warp_border, warp_border_plain
 from ppeadepth_tpu_torch.kernels.ffn_fused import fold_ffn_params
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS, ConvFFN
@@ -48,34 +48,69 @@ def cuda():
     return torch.device("cuda")
 
 
+def _t(rng, shape, scale, device, dtype):
+    return torch.from_numpy(
+        (rng.randn(*shape) * scale).astype(np.float32)).to(device).to(dtype)
+
+
 def _bf16(rng, shape, scale, device):
     return torch.from_numpy(
         (rng.randn(*shape) * scale).astype(np.float32)).to(device).bfloat16()
 
 
+# every k with its own instance of kernel A (3, 5, 7: wide; 13, 27, 29, 31:
+# narrow) and k=9 (the run-time-k instance), at a stage-like shape
+LK_KS = (3, 5, 7, 9, 13, 27, 29, 31)
+# ragged: C not a multiple of 8 (scalar halo loads), C odd (scalar stores),
+# B=1, H and W no multiple of the tile, k beyond H and W
+LK_RAGGED = [(1, 20, 9, 21, 7), (2, 7, 9, 21, 5), (1, 20, 9, 21, 27),
+             (3, 48, 7, 19, 13), (2, 32, 5, 9, 13), (1, 13, 11, 23, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,C,H,W,k,bias", [
     (8, *STAGES[0], True), (8, *STAGES[1], True), (8, *STAGES[2], True),
     (8, *STAGES[3], True),
     (3, 48, 7, 19, 5, False),    # C not a multiple of 32, ragged tiles
     (2, 20, 9, 21, 7, True),     # C not a multiple of 8: scalar halo loads
     (2, 32, 5, 9, 13, True),     # k > H and k > W
+    *((2, 64, 12, 40, k, True) for k in LK_KS),
+    *((*r, True) for r in LK_RAGGED),
 ])
-def test_lk_dwconv_matches_plain(cuda, B, C, H, W, k, bias):
+def test_lk_dwconv_matches_plain(cuda, B, C, H, W, k, bias, dtype):
     rng = np.random.RandomState(0)
-    x = _bf16(rng, (B, H, W, C), 1.0, cuda).permute(0, 3, 1, 2)
-    w = _bf16(rng, (C, 1, k, k), 1.0 / k, cuda)
-    b = _bf16(rng, (C,), 0.1, cuda) if bias else None
+    x = _t(rng, (B, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
+    w = _t(rng, (C, 1, k, k), 1.0 / k, cuda, dtype)
+    b = _t(rng, (C,), 0.1, cuda, dtype) if bias else None
     n0 = kernels.launch_counts["lk_dwconv"]
     y = lk_depthwise(x, w, b)
     torch.cuda.synchronize()
     assert kernels.launch_counts["lk_dwconv"] == n0 + 1
     assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.dtype == dtype
     ref = depthwise_plain(x.float(), w.float(),
                           b.float() if b is not None else None)
     # bf16 output rounding is <= 2^-9 relative; 1e-2 of the peak leaves
-    # room for f32 summation order over up to 961 taps
+    # room for f32 summation order over up to 961 taps; f32: 1e-4 of the
+    # peak, the summation order alone
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     err = (y.float() - ref).abs().max().item()
-    assert err <= 1e-2 * ref.abs().max().item(), err
+    assert err <= tol * ref.abs().max().item(), err
+
+
+def test_lk_dx_launches_kernel_a_once(cuda):
+    """d/dx reads the flipped kernel in place: one launch of kernel A and
+    no other launch of the port's."""
+    rng = np.random.RandomState(1)
+    g = _t(rng, (2, 12, 40, 64), 1.0, cuda, torch.bfloat16).permute(0, 3, 1, 2)
+    w = _t(rng, (64, 1, 27, 27), 1.0 / 27, cuda, torch.bfloat16)
+    n0 = dict(kernels.launch_counts)
+    dx = _input_grad(g, w)
+    torch.cuda.synchronize()
+    assert {n: kernels.launch_counts[n] - n0[n] for n in n0} == {
+        n: int(n == "lk_dwconv_dx") for n in n0}
+    ref = depthwise_plain(g.float(), w.flip(-1, -2).float())
+    assert (dx.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
 
 
 # kernel #3 (the Pallas depthwise_conv2d_pallas) at the eval forward's
@@ -215,21 +250,19 @@ def test_wrappers_raise_on_cuda_float32(cuda):
         ffn_fused(xf, p)
 
 
-def _t(rng, shape, scale, device, dtype):
-    return torch.from_numpy(
-        (rng.randn(*shape) * scale).astype(np.float32)).to(device).to(dtype)
-
-
-@pytest.mark.parametrize("C,H,W,k", [*(s for s in STAGES), (20, 9, 21, 7)])
+@pytest.mark.parametrize("B,C,H,W,k", [
+    *((2, *s) for s in STAGES), (2, 20, 9, 21, 7),
+    *((2, 64, 12, 40, k) for k in LK_KS), *LK_RAGGED])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lk_train_matches_plain(cuda, dtype, C, H, W, k):
+def test_lk_train_matches_plain(cuda, dtype, B, C, H, W, k):
     """Kernel #2: forward (kernel A, no bias) and d/dx (kernel A on the
     flipped kernel) through the autograd Function, at the training stage
-    shapes (B=2) and a ragged one. bf16 as kernel A's test; f32 within
-    1e-4 of the peak (f32 summation order over up to 961 taps)."""
+    shapes (B=2), every instantiated k and the run-time one, and ragged
+    shapes. bf16 as kernel A's test; f32 within 1e-4 of the peak (f32
+    summation order over up to 961 taps)."""
     rng = np.random.RandomState(k)
-    x = _t(rng, (2, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
-    g = _t(rng, (2, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
+    x = _t(rng, (B, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
+    g = _t(rng, (B, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
     w = _t(rng, (C, 1, k, k), 1.0 / k, cuda, dtype)
     x.requires_grad_(True)
     n0 = dict(kernels.launch_counts)

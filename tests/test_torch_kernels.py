@@ -18,7 +18,10 @@ from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.kernels.ffn_fused import (
     K_TILE, TILES, FoldedFFN, ffn_fused, ffn_fused_plain,
     ffn_packed_plain, ffn_plan, fold_ffn_params, pack_ffn)
-from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
+from ppeadepth_tpu_torch.kernels.lk_conv import (
+    MAX_THREADS, SMEM_PER_BLOCK, WIDE_MAX_K, _input_grad, depthwise_plain,
+    lk_depthwise, lk_plan)
+from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
 from tests.torch_parity import nhwc_to_torch, perturb, torch_to_nhwc
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
@@ -178,6 +181,97 @@ def test_ffn_plan_covers_every_tile(M, H4):
         assert K % K_TILE == 0
         blocks = [-(-M // b) * (N // n) for b, n in TILES if N % n == 0]
         assert -(-M // bm) * (N // bn) >= min(132, max(blocks))
+
+
+def _lk_main_shapes():
+    """(B, H, W, C, k) of kernel A on the main paths at 640x192, B=8 and
+    12, for rep_size b, l and xl (dw_ratio widens xl to C=3072): each
+    stage's large kernel, its small kernel and the stem's stride-1 3x3."""
+    shapes = set()
+    for cfg in REPLK_CONFIGS.values():
+        for i, (C, k) in enumerate(zip(cfg["channels"], cfg["large_kernel_sizes"])):
+            C = int(C * cfg["dw_ratio"])
+            for B in (8, 12):
+                for kk in {k, cfg["small_kernel"] or k}:
+                    shapes.add((B, 48 >> i, 160 >> i, C, kk))
+                shapes.add((B, 96, 320, cfg["channels"][0], 3))
+    return sorted(shapes)
+
+
+LK_MAIN = _lk_main_shapes()
+LK_RAGGED = [(20, 9, 21, 7), (7, 9, 21, 5), (20, 9, 21, 27), (13, 11, 23, 9),
+             (3, 1, 1, 31), (1000, 5, 3, 13)]
+
+
+def _lk_plan_coverage(B, H, W, C, k, dtype):
+    """Walk kernel A's blocks and threads as csrc/lk_dwconv.cu maps them
+    (tile = blockIdx.x, channel group = blockIdx.y, image = blockIdx.z;
+    thread = channel pair, row, strip) and count how often each output row,
+    column and channel is written; the map is a product of the three."""
+    p = lk_plan(B, H, W, C, k, dtype)
+    lanes = p.cb // 2
+    tw = p.twt * p.tws
+    assert p.grid == (p.tiles_h * p.tiles_w, p.groups, B)
+    assert p.threads == lanes * p.th * p.tws <= MAX_THREADS
+    tids = np.arange(p.threads)
+    lane, r, s = tids % lanes, tids // lanes % p.th, tids // (lanes * p.th)
+    assert len({*zip(lane, r, s)}) == p.threads
+    assert (s < p.tws).all()
+    rows, cols, chans = np.zeros(H, int), np.zeros(W, int), np.zeros(C, int)
+    for t in range(p.tiles_h):
+        oh = t * p.th + np.arange(p.th)
+        np.add.at(rows, oh[oh < H], 1)
+        # the halo rows inside the image fit the allocated rows
+        assert min(H - 1, t * p.th + p.th - 1 + k // 2) - max(0, t * p.th - k // 2) < p.rows
+    for t in range(p.tiles_w):
+        ow = t * tw + np.arange(tw)
+        np.add.at(cols, ow[ow < W], 1)
+    for g in range(p.groups):
+        c = g * p.cb + 2 * np.arange(lanes)
+        for cc in (c, c + 1):
+            np.add.at(chans, cc[cc < C], 1)
+    assert (rows == 1).all() and (cols == 1).all() and (chans == 1).all()
+    esize = 2 if dtype == torch.bfloat16 else 4
+    assert p.cb * esize == (128 if k <= WIDE_MAX_K else 32)
+    assert p.pitch >= tw + k - 1 and (k <= WIDE_MAX_K or p.pitch % 4 == 1)
+    assert p.rows == min(p.th + k - 1, H)
+    assert p.smem == (k * k + p.rows * p.pitch) * p.cb * esize <= SMEM_PER_BLOCK
+    assert p.groups <= 65535 and B <= 65535
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,k", LK_MAIN, ids=lambda v: str(v))
+def test_lk_plan_covers_every_output(B, H, W, C, k, dtype):
+    """Kernel A's plan at the main paths' shapes (rep_size b, l, xl): every
+    output (b, h, w, c) exactly once, shared memory within 227 KB, and two
+    or more resident blocks per SM."""
+    p = _lk_plan_coverage(B, H, W, C, k, dtype)
+    assert p.blocks_per_sm >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 12])
+@pytest.mark.parametrize("C,H,W,k", LK_RAGGED)
+def test_lk_plan_covers_ragged_shapes(C, H, W, k, B, dtype):
+    """The plan at ragged shapes (C not a multiple of 8 or odd, H and W no
+    multiple of the tile, k beyond H and W): every output exactly once,
+    shared memory within 227 KB."""
+    _lk_plan_coverage(B, H, W, C, k, dtype)
+
+
+@pytest.mark.parametrize("k", [3, 9, 31])
+def test_input_grad_cpu_is_plain_on_flipped_kernel(k):
+    """d/dx on the CPU: the plain conv of the gradient with the kernel
+    flipped in both spatial axes (kernel A reads it flipped in place)."""
+    g = torch.Generator().manual_seed(k)
+    dy = torch.randn(2, 20, 9, 21, generator=g)
+    w = torch.randn(20, 1, k, k, generator=g)
+    before = dict(kernels.launch_counts)
+    dx = _input_grad(dy, w)
+    torch.testing.assert_close(dx, depthwise_plain(dy, w.flip(-1, -2)),
+                               rtol=0, atol=0)
+    assert kernels.launch_counts == before
 
 
 def _ffn_operands(dtype=torch.float32, c=16, adapter=True):
