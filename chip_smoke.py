@@ -368,9 +368,10 @@ def profile_lk_launches(dev, rng):
     """`--kernel A` only: per main-path shape and type, the device time
     of one kernel A launch (forward, and dx on the flipped kernel) beside
     cuDNN's depthwise `F.conv2d` (torch.profiler, us per launch), with the
-    launch's plan and its multiply-add rate."""
+    launch's plan and its multiply-add rate, and the host time of one
+    `lk_depthwise` call and of one `F.conv2d` call, enqueued behind a busy
+    device."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ppeadepth_tpu_torch.kernels.lk_conv import (
         _input_grad, depthwise_plain, lk_depthwise, lk_plan)
@@ -381,43 +382,69 @@ def profile_lk_launches(dev, rng):
                 dev).to(dtype).permute(0, 3, 1, 2)
             w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype(
                 "float32")).to(dev).to(dtype)
-            for _ in range(2):
-                lk_depthwise(x, w), _input_grad(x, w), depthwise_plain(x, w)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    lk_depthwise(x, w)
-                    _input_grad(x, w)
-                    depthwise_plain(x, w)
+            ours = _device_us(lambda: (lk_depthwise(x, w), _input_grad(x, w))) / 2
+            lib = _device_us(lambda: depthwise_plain(x, w))
+            ev_ours, ev_lib = _time_turns([lambda: lk_depthwise(x, w),
+                                           lambda: depthwise_plain(x, w)], 50)
+            host = []
+            for fn in (lambda: lk_depthwise(x, w), lambda: depthwise_plain(x, w)):
+                torch.cuda._sleep(2_000_000)  # enqueue behind a busy device
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn()
+                host.append((time.perf_counter() - t0) / 50 * 1e6)
                 torch.cuda.synchronize()
-            ours = lib = 0.0
-            for e in prof.key_averages():
-                if e.device_time_total <= 0 or "Memset" in e.key:
-                    continue
-                if "lk_dwconv" in e.key:
-                    ours += e.device_time_total
-                else:
-                    lib += e.device_time_total
-            ours, lib = ours / 20, lib / 10
             macs = _dw_macs(B, H, W, C, k)
             bnd, by = _bound_ms(x.element_size() * (2 * B * H * W * C + C * k * k),
                                 2 * macs, F32_FLOP_PER_S)
             print(f"kernel A launch [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: "
                   f"{ours:.2f} us (forward and dx), cuDNN {lib:.2f} us, "
-                  f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}); "
+                  f"CUDA events {ev_ours * 1e3:.2f} / {ev_lib * 1e3:.2f} us, "
+                  f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}); host "
+                  f"{host[0]:.1f} us a call, cuDNN's {host[1]:.1f} us; "
                   f"{macs / ours / 1e6:.2f} T multiply-adds/s "
                   f"({100 * 2 * macs / ours / 1e6 / (F32_FLOP_PER_S / 1e12):.1f} % "
                   f"of f32 FMA); plan {lk_plan(B, H, W, C, k, dtype)}")
 
 
+def _clocks(tag):
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(f"clocks {tag}: {smi.stdout.strip()}")
+
+
+def _device_us(fn, iters=10):
+    """Device time per call of `fn` in us: torch.profiler's kernel time
+    over `iters` calls, after one warm call. A trace that holds no kernel
+    (the profiler drops one now and then) is taken again, up to 3 times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_time_total > 0 and "Memset" not in e.key)
+        if total > 0:
+            return total / iters
+    raise AssertionError("torch.profiler recorded no device time in 3 traces")
+
+
 def sweep_lk_plans(dev, rng):
     """`--kernel A --sweep` only: per main-path shape and type, the
-    forward's time (CUDA events, in turns) under the best plan `lk_plans`
+    forward's device time (torch.profiler) under the best plan `lk_plans`
     ranks for each strip count, so the plan's model can be held against
-    the card."""
+    the card; at k <= 7 also cuDNN's time, measured in the same state of
+    the card (after no long cuDNN call)."""
     import torch
 
-    from ppeadepth_tpu_torch.kernels.lk_conv import _launch, lk_plans
+    from ppeadepth_tpu_torch.kernels.lk_conv import _launch, depthwise_plain, lk_plans
 
     for B, H, W, C, k in _lk_shapes():
         for dtype in (torch.bfloat16, torch.float32):
@@ -427,13 +454,17 @@ def sweep_lk_plans(dev, rng):
                 "float32")).to(dev).to(dtype)
             plans, seen = [], set()
             for p in lk_plans(B, H, W, C, k, dtype):
-                if p.tws not in seen and len(plans) < 6:
-                    seen.add(p.tws)
+                if (p.th, p.tws) not in seen and len(plans) < 8 and (
+                        p.tws not in {q.tws for q in plans} or
+                        p.th not in {q.th for q in plans}):
+                    seen.add((p.th, p.tws))
                     plans.append(p)
-            ms = _time_turns([lambda p=p: _launch(x, w, None, "lk_dwconv", plan=p)
-                              for p in plans], 10)
+            us = [_device_us(lambda p=p: _launch(x, w, None, "lk_dwconv", plan=p))
+                  for p in plans]
+            lib = _device_us(lambda: depthwise_plain(x, w)) if k <= 7 else None
             print(f"kernel A sweep [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: " + "; ".join(
-                f"th={p.th} tws={p.tws} {t * 1e3:.1f} us" for p, t in zip(plans, ms)))
+                f"th={p.th} tws={p.tws} {t:.2f} us" for p, t in zip(plans, us))
+                + (f"; cuDNN {lib:.2f} us" if lib is not None else ""))
 
 
 def _kitti_K(height, width, batch):
@@ -1635,12 +1666,16 @@ def main():
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
     if only == "A":
+        _clocks("before the checks")
         res = {"kernel A (teacher)": check_lk_dwconv(dev, rng),
                "kernel #2": check_lk_train(dev, rng),
                "kernel #3": check_lk_pallas(dev, rng)}
+        _clocks("after the checks")
         profile_lk_launches(dev, rng)
+        _clocks("after the launch profile")
         if "--sweep" in args:
             sweep_lk_plans(dev, rng)
+            _clocks("after the sweep")
         print(json.dumps({"kernel A only": res}))
         return
     if only == "B":

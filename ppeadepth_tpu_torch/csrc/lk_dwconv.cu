@@ -26,10 +26,11 @@
 //     several blocks on each SM whose loads overlap the others' FMAs;
 //   * k >= 13 (the large kernels): CUDA-core FMAs. Each input value is
 //     reused up to k*k times (961 at k=31), against which the halo's load
-//     is a few per cent. The "narrow" instances take 32 bytes of channels
-//     per block (16 bf16, 8 f32), so that the k*k weights (31 KB at k=31)
-//     and a halo of up to ~80 KB fit twice on an SM: two resident blocks,
-//     one loading while the other multiplies.
+//     is a few per cent. The "narrow" instances take 8 channels per
+//     block and keep them in shared memory as f32 (bf16 is widened once as
+//     it is staged, not once per tap), so that the k*k weights (31 KB at
+//     k=31) and a halo of up to ~80 KB fit twice on an SM: two resident
+//     blocks, one loading while the other multiplies.
 //   The tensor cores stay idle: a depthwise conv has no reduction over
 //   channels to feed them.
 //
@@ -45,21 +46,28 @@
 //     stage width (320, 160, 80, 40, 20) and no thread column idles. The
 //     plan chooses TH and TWS per shape: at stages 2-3 TH is the whole
 //     image height;
-//   * shared memory holds the block's k*k weights, staged by threads that
-//     walk each channel's contiguous k*k run (coalesced reads) and write it
-//     transposed to [tap][channel], and the halo rows that exist,
-//     min(TH + k - 1, H), as 16-byte vectors; halo rows outside the image
-//     are neither stored nor multiplied. The narrow layout's row pitch is
+//   * shared memory holds the block's k*k weights, staged once per block by
+//     threads that walk each channel's contiguous k*k run (coalesced reads)
+//     and write it transposed to [tap][channel], and the halo rows that
+//     exist, min(TH + k - 1, H), copied as 16-byte cp.async vectors (zero
+//     fill off the image's columns); halo rows outside the image are
+//     neither stored nor multiplied. The narrow layout's row pitch is
 //     padded to 1 mod 4 pixels so the four pixels a warp reads fall in
 //     four different bank quarters;
+//   * wide instances are persistent: a block owns one channel group, walks
+//     its share of the (image, tile) pairs and fetches the next tile's halo
+//     into a second buffer while it multiplies the current one, so each SM
+//     streams without pause. Narrow instances launch a block per tile with
+//     one buffer: a tile's FMAs outlast its load many times over, and the
+//     second resident block covers the load;
 //   * per kernel row a thread keeps that row's k weight pairs in registers
 //     and streams the TWT + k - 1 input pairs past them, k * TWT * 2 FMAs
 //     per 2k + TWT - 1 shared loads, fully unrolled with no predicate;
 //     kernel rows are clipped to those landing inside the image;
 //   * __launch_bounds__(256, 2) for the narrow instances (at most 128
 //     registers a thread: k=31 keeps 62 of them for its weights) and
-//     (256, 4) for the wide ones (at most 64), so two or four 256-thread
-//     blocks are resident whenever the plan's shared memory fits beside
+//     (512, 2) for the wide ones (at most 64), so two blocks of the most
+//     threads are resident whenever the plan's shared memory fits beside
 //     them.
 //
 // Where it runs: all four encoder stages. The JAX package gated its banded
@@ -70,11 +78,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int KMAX = 31;          // largest supported kernel
 constexpr int TWT = 10;           // output columns per thread
-constexpr int MAX_THREADS = 256;  // per block (lk_plan keeps to it)
+// threads per block (lk_plan keeps to it): __launch_bounds__(MAX, 2) caps
+// a thread at 64 registers (wide) and 128 (narrow: k=31 keeps 62 of them
+// for its weights)
+constexpr int MAX_THREADS_WIDE = 512;
+constexpr int MAX_THREADS_NARROW = 256;
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -102,192 +116,286 @@ __device__ __forceinline__ void fma2(float2& acc, float2 x, float2 w) {
   acc.y = fmaf(x.y, w.y, acc.y);
 }
 
+// 16 bytes global -> shared without passing through registers; `valid`
+// false writes zeros (the source is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // T: element type; K: kernel size, or 0 for the run-time instance (k_rt);
-// CB: channels per block. Tile: TH rows x TWS strips of TWT columns.
-// `rows`, `pitch`: the halo's allocated rows and its row pitch in pixels.
-template <typename T, int K, int CB>
-__global__ void __launch_bounds__(MAX_THREADS, CB * sizeof(T) == 128 ? 4 : 2)
+// CB: channels per block. The block owns channel group blockIdx.y and walks
+// tiles blockIdx.x, + gridDim.x, ... of the n_tiles (image, tile) pairs,
+// each TH rows x TWS strips of TWT columns. The wide instances keep two
+// halo buffers and fetch the next tile's halo with cp.async while they
+// multiply the current one; the narrow ones one (their grid has a block
+// per tile, and a second resident block does the overlapping).
+// `pitch`: the halo's row pitch in pixels; `rows`: its allocated rows.
+template <typename T, int K, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 512 : 256, 2)
 lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ bias, T* __restrict__ y, int H, int W,
-                 int C, int k_rt, int flip, int TH, int TWS, int tiles_w,
-                 int pitch) {
+                 int C, int k_rt, int flip, int TH, int TWS, int tiles_h,
+                 int tiles_w, int n_tiles, int rows, int pitch) {
+  // shared memory holds S: T in the wide instances, f32 in the narrow ones
+  // (bf16 widened once while staged, not once per tap)
+  using S = typename std::conditional<WIDE, T, float>::type;
+  constexpr int CB = WIDE ? 128 / sizeof(T) : 8;  // channels per block
+  constexpr int NBUF = WIDE ? 2 : 1;
   constexpr int L = CB / 2;            // threads per pixel (channel pairs)
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int VPP = CB / VEC;        // vectors per pixel
+  constexpr int VEC = 16 / sizeof(T);  // elements of x per 16-byte vector
+  constexpr int VPP = CB / VEC;        // vectors per pixel (0: bf16 narrow)
   const int k = K > 0 ? K : k_rt;
   const int half = k / 2;
   const int kk = k * k;
   const int TW = TWT * TWS;
   const int WW = TW + k - 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ws = reinterpret_cast<T*>(smem);  // [k*k][CB]
-  T* xs = ws + kk * CB;                // [rows][pitch][CB]
+  S* ws = reinterpret_cast<S*>(smem);  // [k*k][CB]
+  S* xs0 = ws + kk * CB;               // NBUF x [rows][pitch][CB]
 
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
   const int c0 = blockIdx.y * CB;
-  const int b = blockIdx.z;
-  const T zero = from_f32<T>(0.f);
+  const bool vec = C % VEC == 0;
 
-  // weights: consecutive threads read consecutive elements of the group's
-  // contiguous [CB][k*k] run; stored as [tap][channel], flipped if asked
-  {
+  // weights, once per block, after the first halo's copies are on their
+  // way: consecutive threads read consecutive 16-byte vectors of the
+  // group's contiguous [CB][k*k] run (CB * k * k is a whole number of
+  // them; element loads if w is not 16-byte aligned); stored as
+  // [tap][channel], flipped if asked
+  auto stage_weights = [&]() {
     const T* wg = w + (size_t)c0 * kk;
     const int n = min(CB, C - c0) * kk;
-    for (int i = tid; i < CB * kk; i += nthreads) {
+    auto put = [&](int i, float v) {
       const int c = i / kk;
       const int t = i - c * kk;
-      ws[(flip ? kk - 1 - t : t) * CB + c] = i < n ? wg[i] : zero;
-    }
-  }
-  // the halo rows inside the image
-  const int ih_lo = max(0, h0 - half);
-  const int ih_hi = min(H - 1, h0 + TH - 1 + half);
-  const int n_rows = ih_hi - ih_lo + 1;
-  const int iw0 = w0 - half;
-  if (C % VEC == 0) {
-    for (int i = tid; i < n_rows * WW * VPP; i += nthreads) {
-      const int v = i % VPP;
-      const int p = i / VPP;
-      const int col = p % WW;
-      const int row = p / WW;
-      const int iw = iw0 + col;
-      const int c = c0 + v * VEC;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (iw >= 0 && iw < W && c < C) {
-        val = __ldg(reinterpret_cast<const uint4*>(
-            x + ((size_t)(b * H + ih_lo + row) * W + iw) * C + c));
+      ws[(flip ? kk - 1 - t : t) * CB + c] = from_f32<S>(i < n ? v : 0.f);
+    };
+    if (reinterpret_cast<size_t>(w) % 16 == 0) {
+#pragma unroll 2
+      for (int v = tid; v < CB * kk / VEC; v += nthreads) {
+        if ((v + 1) * VEC <= n) {
+          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(wg) + v);
+          const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) put(v * VEC + j, to_f32(e[j]));
+        } else {  // the group's ragged end: no read past w
+          for (int i = v * VEC; i < (v + 1) * VEC; ++i) put(i, i < n ? to_f32(wg[i]) : 0.f);
+        }
       }
-      *reinterpret_cast<uint4*>(xs + (row * pitch + col) * CB + v * VEC) = val;
+    } else {
+      for (int i = tid; i < CB * kk; i += nthreads) put(i, i < n ? to_f32(wg[i]) : 0.f);
     }
-  } else {
-    for (int i = tid; i < n_rows * WW * CB; i += nthreads) {
-      const int cc = i % CB;
-      const int p = i / CB;
-      const int col = p % WW;
-      const int row = p / WW;
-      const int iw = iw0 + col;
-      const int c = c0 + cc;
-      T v = zero;
-      if (iw >= 0 && iw < W && c < C) {
-        v = x[((size_t)(b * H + ih_lo + row) * W + iw) * C + c];
+  };
+
+  // the halo rows of tile t inside the image into buffer xs: 16-byte
+  // cp.async copies (zero-filled off the image), else element loads
+  auto stage = [&](int t, S* xs) {
+    const int b = t / (tiles_h * tiles_w);
+    const int tile = t - b * (tiles_h * tiles_w);
+    const int h0 = (tile / tiles_w) * TH;
+    const int iw0 = (tile % tiles_w) * TW - half;
+    const int ih_lo = max(0, h0 - half);
+    const int n_rows = min(H - 1, h0 + TH - 1 + half) - ih_lo + 1;
+    const T* xb = x + (size_t)(b * H + ih_lo) * W * C;
+    if constexpr (!std::is_same<S, T>::value) {
+      // bf16 -> f32: one 16-byte load is one pixel's 8 channels
+      if (vec) {
+#pragma unroll 4
+        for (int i = tid; i < n_rows * WW; i += nthreads) {
+          const int col = i % WW;
+          const int row = i / WW;
+          const int iw = iw0 + col;
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (iw >= 0 && iw < W && c0 < C) {
+            v = __ldg(reinterpret_cast<const uint4*>(xb + ((size_t)row * W + iw) * C + c0));
+          }
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+          float4* d = reinterpret_cast<float4*>(xs + (row * pitch + col) * CB);
+          const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+          const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+          d[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+          d[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+        }
+        return;
       }
-      xs[(row * pitch + col) * CB + cc] = v;
+    } else if (vec) {
+      for (int i = tid; i < n_rows * WW * VPP; i += nthreads) {
+        const int v = i % VPP;
+        const int p = i / VPP;
+        const int col = p % WW;
+        const int row = p / WW;
+        const int iw = iw0 + col;
+        const int c = c0 + v * VEC;
+        const bool in = iw >= 0 && iw < W && c < C;
+        cp_async16(xs + (row * pitch + col) * CB + v * VEC,
+                   in ? xb + ((size_t)row * W + iw) * C + c : x, in);
+      }
+      return;
     }
-  }
-  __syncthreads();
+    {  // C not a multiple of the vector: element loads
+      for (int i = tid; i < n_rows * WW * CB; i += nthreads) {
+        const int cc = i % CB;
+        const int p = i / CB;
+        const int col = p % WW;
+        const int row = p / WW;
+        const int iw = iw0 + col;
+        const int c = c0 + cc;
+        xs[(row * pitch + col) * CB + cc] = from_f32<S>(
+            iw >= 0 && iw < W && c < C ? to_f32(xb[((size_t)row * W + iw) * C + c]) : 0.f);
+      }
+    }
+  };
 
   const int lane = tid % L;
   const int r = (tid / L) % TH;
   const int s = tid / (L * TH);
-  const int oh = h0 + r;
-  const int ow0 = w0 + s * TWT;
   const int c = c0 + 2 * lane;
-  if (oh >= H || s >= TWS || ow0 >= W || c >= C) return;
-
-  float2 acc[TWT];
-#pragma unroll
-  for (int j = 0; j < TWT; ++j) acc[j] = make_float2(0.f, 0.f);
-
-  // kernel rows landing inside the image for this output row
-  const int dy_lo = max(0, half - oh);
-  const int dy_hi = min(k - 1, H - 1 - oh + half);
-  for (int dy = dy_lo; dy <= dy_hi; ++dy) {
-    const T* xp = xs + ((oh + dy - half - ih_lo) * pitch + s * TWT) * CB + 2 * lane;
-    const T* wp = ws + dy * k * CB + 2 * lane;
-    if constexpr (K > 0) {
-      float2 wv[K];
-#pragma unroll
-      for (int dx = 0; dx < K; ++dx) wv[dx] = load2(wp + dx * CB);
-#pragma unroll
-      for (int m = 0; m < TWT + K - 1; ++m) {
-        const float2 xv = load2(xp + m * CB);
-#pragma unroll
-        for (int j = 0; j < TWT; ++j) {
-          if (m - j >= 0 && m - j < K) fma2(acc[j], xv, wv[m - j]);
-        }
-      }
-    } else {
-      for (int dx = 0; dx < k; ++dx) {
-        const float2 wv = load2(wp + dx * CB);
-#pragma unroll
-        for (int j = 0; j < TWT; ++j) fma2(acc[j], load2(xp + (j + dx) * CB), wv);
-      }
-    }
-  }
-
   float b0 = 0.f, b1 = 0.f;
-  if (bias != nullptr) {
+  if (bias != nullptr && c < C) {
     b0 = to_f32(bias[c]);
     b1 = c + 1 < C ? to_f32(bias[c + 1]) : 0.f;
   }
-  T* yp = y + ((size_t)(b * H + oh) * W + ow0) * C + c;
-#pragma unroll
-  for (int j = 0; j < TWT; ++j) {
-    if (ow0 + j >= W) break;
-    if (C % 2 == 0) {
-      store2(yp + (size_t)j * C, acc[j].x + b0, acc[j].y + b1);
+
+  int buf = 0;
+  if (blockIdx.x < n_tiles) stage(blockIdx.x, xs0);
+  cp_async_commit();
+  stage_weights();
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int tn = t + gridDim.x;
+    if constexpr (NBUF == 2) {
+      if (tn < n_tiles) stage(tn, xs0 + (buf ^ 1) * rows * pitch * CB);
+      cp_async_commit();  // (an empty group past the last tile)
+      cp_async_wait<1>();
     } else {
-      yp[(size_t)j * C] = from_f32<T>(acc[j].x + b0);
-      if (c + 1 < C) yp[(size_t)j * C + 1] = from_f32<T>(acc[j].y + b1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int b = t / (tiles_h * tiles_w);
+    const int tile = t - b * (tiles_h * tiles_w);
+    const int h0 = (tile / tiles_w) * TH;
+    const int oh = h0 + r;
+    const int ow0 = (tile % tiles_w) * TW + s * TWT;
+    if (oh < H && ow0 < W && c < C) {
+      const S* xs = xs0 + buf * rows * pitch * CB;
+      const int ih_lo = max(0, h0 - half);
+      float2 acc[TWT];
+#pragma unroll
+      for (int j = 0; j < TWT; ++j) acc[j] = make_float2(0.f, 0.f);
+      // kernel rows landing inside the image for this output row
+      const int dy_lo = max(0, half - oh);
+      const int dy_hi = min(k - 1, H - 1 - oh + half);
+      for (int dy = dy_lo; dy <= dy_hi; ++dy) {
+        const S* xp = xs + ((oh + dy - half - ih_lo) * pitch + s * TWT) * CB + 2 * lane;
+        const S* wp = ws + dy * k * CB + 2 * lane;
+        if constexpr (K > 0) {
+          float2 wv[K];
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) wv[dx] = load2(wp + dx * CB);
+#pragma unroll
+          for (int m = 0; m < TWT + K - 1; ++m) {
+            const float2 xv = load2(xp + m * CB);
+#pragma unroll
+            for (int j = 0; j < TWT; ++j) {
+              if (m - j >= 0 && m - j < K) fma2(acc[j], xv, wv[m - j]);
+            }
+          }
+        } else {
+          for (int dx = 0; dx < k; ++dx) {
+            const float2 wv = load2(wp + dx * CB);
+#pragma unroll
+            for (int j = 0; j < TWT; ++j) fma2(acc[j], load2(xp + (j + dx) * CB), wv);
+          }
+        }
+      }
+      T* yp = y + ((size_t)(b * H + oh) * W + ow0) * C + c;
+#pragma unroll
+      for (int j = 0; j < TWT; ++j) {
+        if (ow0 + j >= W) break;
+        if (C % 2 == 0) {
+          store2(yp + (size_t)j * C, acc[j].x + b0, acc[j].y + b1);
+        } else {
+          yp[(size_t)j * C] = from_f32<T>(acc[j].x + b0);
+          if (c + 1 < C) yp[(size_t)j * C + 1] = from_f32<T>(acc[j].y + b1);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is free for the next fetch
+    if constexpr (NBUF == 2) {
+      buf ^= 1;
+    } else {
+      if (tn < n_tiles) stage(tn, xs0);
+      cp_async_commit();
     }
   }
 }
 
-template <typename T, int K, int CB>
+template <typename T, int K, bool WIDE>
 int launch(const void* x, const void* w, const void* bias, void* y, int B,
-           int H, int W, int C, int k, int flip, int TH, int TWS, int pitch,
-           int smem, void* stream) {
+           int H, int W, int C, int k, int flip, int TH, int TWS, int rows,
+           int pitch, int smem, int blocks, void* stream) {
   static int opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lk_dwconv_kernel<T, K, CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lk_dwconv_kernel<T, K, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = smem;
   }
   const int tiles_h = (H + TH - 1) / TH;
   const int tiles_w = (W + TWT * TWS - 1) / (TWT * TWS);
-  const dim3 grid(tiles_h * tiles_w, (C + CB - 1) / CB, B);
-  lk_dwconv_kernel<T, K, CB><<<grid, (CB / 2) * TH * TWS, smem,
+  constexpr int CB = WIDE ? 128 / sizeof(T) : 8;
+  const dim3 grid(blocks, (C + CB - 1) / CB);
+  lk_dwconv_kernel<T, K, WIDE><<<grid, (CB / 2) * TH * TWS, smem,
                                (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w, (const T*)bias, (T*)y, H, W, C, k, flip, TH,
-      TWS, tiles_w, pitch);
+      TWS, tiles_h, tiles_w, B * tiles_h * tiles_w, rows, pitch);
   return (int)cudaGetLastError();
 }
 
-// The instances: wide (128 bytes of channels) for k <= 7, narrow (32 bytes)
-// for the large kernels, and the run-time-k instance in both widths.
+// The instances: wide (128 bytes of channels, T in shared memory) for
+// k <= 7, narrow (8 channels, f32 in shared memory) for the large kernels,
+// and the run-time-k instance in both.
 template <typename T>
 int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
              int H, int W, int C, int k, int flip, int TH, int TWS, int cb,
-             int pitch, int smem, void* stream) {
-  constexpr int WIDE = 128 / sizeof(T);
-  constexpr int NARROW = 32 / sizeof(T);
+             int rows, int pitch, int smem, int blocks, void* stream) {
+  constexpr int WIDE_CB = 128 / sizeof(T);
+  const bool wide = cb == WIDE_CB;
   const int threads = (cb / 2) * TH * TWS;
-  if (k < 1 || k > KMAX || k % 2 == 0 || B < 1 || B > 65535 || H < 1 ||
-      W < 1 || C < 1 || TH < 1 || TWS < 1 || threads > MAX_THREADS ||
-      (cb != WIDE && cb != NARROW) || pitch < TWT * TWS + k - 1) {
+  if (k < 1 || k > KMAX || k % 2 == 0 || B < 1 || H < 1 || W < 1 || C < 1 ||
+      TH < 1 || TWS < 1 ||
+      threads > (wide ? MAX_THREADS_WIDE : MAX_THREADS_NARROW) || (!wide && cb != 8) ||
+      pitch < TWT * TWS + k - 1 || rows < min(TH + k - 1, H) || blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
-#define PPEA_LK(KV, CBV) \
-  launch<T, KV, CBV>(x, w, bias, y, B, H, W, C, k, flip, TH, TWS, pitch, smem, stream)
-  if (cb == WIDE) {
+#define PPEA_LK(KV, WV) \
+  launch<T, KV, WV>(x, w, bias, y, B, H, W, C, k, flip, TH, TWS, rows, pitch, \
+                    smem, blocks, stream)
+  if (wide) {
     switch (k) {
-      case 3: return PPEA_LK(3, WIDE);
-      case 5: return PPEA_LK(5, WIDE);
-      case 7: return PPEA_LK(7, WIDE);
-      default: return PPEA_LK(0, WIDE);
+      case 3: return PPEA_LK(3, true);
+      case 5: return PPEA_LK(5, true);
+      case 7: return PPEA_LK(7, true);
+      default: return PPEA_LK(0, true);
     }
   }
   switch (k) {
-    case 13: return PPEA_LK(13, NARROW);
-    case 27: return PPEA_LK(27, NARROW);
-    case 29: return PPEA_LK(29, NARROW);
-    case 31: return PPEA_LK(31, NARROW);
-    default: return PPEA_LK(0, NARROW);
+    case 13: return PPEA_LK(13, false);
+    case 27: return PPEA_LK(27, false);
+    case 29: return PPEA_LK(29, false);
+    case 31: return PPEA_LK(31, false);
+    default: return PPEA_LK(0, false);
   }
 #undef PPEA_LK
 }
@@ -295,24 +403,24 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
 }  // namespace
 
 // x, y: [B, H, W, C] (NHWC memory, 16-byte aligned); w: [C, K, K]; bias:
-// [C] or null; all bf16 (`_bf16`) or all f32 (`_f32`). flip != 0 convolves
-// with w[c, K-1-dy, K-1-dx]. TH, TWS, cb (channels per block), pitch and
-// smem (bytes) are lk_plan's. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for arguments no instance takes).
+// [C] or null; all bf16 (`_bf16`) or all f32 (`_f32`). args: B, H, W, C,
+// K, flip (!= 0: convolve with w[c, K-1-dy, K-1-dx]), then lk_plan's TH,
+// TWS, cb (channels per block), rows and pitch (the halo's), smem (bytes)
+// and blocks (per channel group); one array, so a call converts six
+// arguments, not eighteen. Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments no instance
+// takes).
 extern "C" int ppea_lk_dwconv_bf16(const void* x, const void* w,
-                                   const void* bias, void* y, int B, int H,
-                                   int W, int C, int K, int flip, int TH,
-                                   int TWS, int cb, int pitch, int smem,
+                                   const void* bias, void* y, const int* a,
                                    void* stream) {
-  return dispatch<__nv_bfloat16>(x, w, bias, y, B, H, W, C, K, flip, TH, TWS,
-                                 cb, pitch, smem, stream);
+  return dispatch<__nv_bfloat16>(x, w, bias, y, a[0], a[1], a[2], a[3], a[4],
+                                 a[5], a[6], a[7], a[8], a[9], a[10], a[11],
+                                 a[12], stream);
 }
 
 extern "C" int ppea_lk_dwconv_f32(const void* x, const void* w,
-                                  const void* bias, void* y, int B, int H,
-                                  int W, int C, int K, int flip, int TH,
-                                  int TWS, int cb, int pitch, int smem,
+                                  const void* bias, void* y, const int* a,
                                   void* stream) {
-  return dispatch<float>(x, w, bias, y, B, H, W, C, K, flip, TH, TWS, cb,
-                         pitch, smem, stream);
+  return dispatch<float>(x, w, bias, y, a[0], a[1], a[2], a[3], a[4], a[5],
+                         a[6], a[7], a[8], a[9], a[10], a[11], a[12], stream);
 }

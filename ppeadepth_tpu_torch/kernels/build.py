@@ -33,9 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w, bias, y, B, H, W, C, K, flip, TH, TWS, cb, pitch, smem, stream
-    "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, *(_I,) * 11, _P),
-    "ppea_lk_dwconv_f32": (_P, _P, _P, _P, *(_I,) * 11, _P),
+    # x, w, bias, y, args (13 ints: lk_conv.lk_launch_args), stream
+    "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _P, _P),
+    "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _P, _P),
     # x, w_up, b_up, w_down, b_down, hidden, out, M, C, Hp, tile_up,
     # tile_down, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

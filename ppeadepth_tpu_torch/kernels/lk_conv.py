@@ -16,6 +16,7 @@ bytes), weights torch's depthwise [C, 1, k, k].
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
@@ -29,8 +30,10 @@ MAX_K = 31
 
 # csrc/lk_dwconv.cu's tiling (keep in step with the source)
 TWT = 10              # output columns per thread
-MAX_THREADS = 256     # per block; __launch_bounds__ caps registers at ...
-REG_CAP = {True: 64, False: 128}  # ... these, wide and narrow instances
+# threads per block, wide and narrow instances; __launch_bounds__(that, 2)
+# caps a thread's registers at REG_CAP
+MAX_THREADS = {True: 512, False: 256}
+REG_CAP = {True: 64, False: 128}
 WIDE_MAX_K = 11       # k up to this takes the wide (128-byte) channel group
 SMS = 132             # H100 SXM
 SMEM_PER_SM = 233472  # bytes of shared memory on an SM ...
@@ -41,10 +44,12 @@ THREADS_PER_SM = 2048
 
 
 class LKPlan(NamedTuple):
-    """One launch of kernel A: blocks of `th` output rows by `tws` strips of
-    `twt` columns and `cb` channels, `threads` each; the halo holds `rows`
-    rows of `pitch` pixels; `smem` bytes of dynamic shared memory;
-    `blocks_per_sm` resident (registers counted at their REG_CAP)."""
+    """One launch of kernel A: tiles of `th` output rows by `tws` strips of
+    `twt` columns and `cb` channels, `threads` a block; `nbuf` halo
+    buffers of `rows` rows of `pitch` pixels; `smem` bytes of dynamic
+    shared memory; `blocks_per_sm` resident (registers counted at their
+    REG_CAP); `grid` = (blocks per channel group, groups): each block
+    walks tiles blockIdx.x, + blocks, ... of the B * tiles_h * tiles_w."""
     th: int
     tws: int
     twt: int
@@ -52,6 +57,7 @@ class LKPlan(NamedTuple):
     threads: int
     rows: int
     pitch: int
+    nbuf: int
     smem: int
     tiles_h: int
     tiles_w: int
@@ -62,41 +68,54 @@ class LKPlan(NamedTuple):
 
 def _make_plan(B, H, W, C, k, esize, th, tws):
     wide = k <= WIDE_MAX_K
-    cb = (128 if wide else 32) // esize
+    # wide: 128 bytes of channels, stored as they come; narrow: 8 channels,
+    # stored as f32 (bf16 widened once while staged)
+    cb, sesize = (128 // esize, esize) if wide else (8, 4)
     tw = TWT * tws
     ww = tw + k - 1
-    # the narrow layout's row pitch is 1 mod 4 pixels: a warp's four
-    # 32-byte pixels of four rows fall in four bank quarters
+    # the narrow layout's row pitch is 1 mod 4 pixels: the four 32-byte
+    # pixels of four rows that a quarter warp reads fall in four bank
+    # quarters
     pitch = ww if wide else ww + (1 - ww) % 4
     rows = min(th + k - 1, H)
-    smem = (k * k + rows * pitch) * cb * esize
+    # wide: persistent blocks, the next tile's halo fetched into a second
+    # buffer; narrow: a block per tile
+    nbuf = 2 if wide else 1
+    smem = (k * k + nbuf * rows * pitch) * cb * sesize
     threads = cb // 2 * th * tws
     tiles_h, tiles_w, groups = -(-H // th), -(-W // tw), -(-C // cb)
     bps = min((SMEM_PER_SM // (smem + SMEM_RESERVED)),
               REGS_PER_SM // (threads * REG_CAP[wide]),
               THREADS_PER_SM // threads, 32)
-    return LKPlan(th, tws, TWT, cb, threads, rows, pitch, smem, tiles_h,
-                  tiles_w, groups, (tiles_h * tiles_w, groups, B), bps)
+    n_tiles = B * tiles_h * tiles_w
+    blocks = min(n_tiles, -(-SMS * bps // groups)) if wide else n_tiles
+    return LKPlan(th, tws, TWT, cb, threads, rows, pitch, nbuf, smem, tiles_h,
+                  tiles_w, groups, (blocks, groups), bps)
 
 
 def _plan_cost(p, B, H, W, k):
     """A model of a plan's time, in units of its ideal (lower is better):
-    wave quantisation over the SMs, threads short of the SM's fill, and
-    per real output either the bytes staged and written (wide, k <= 11:
-    bound by bytes) or the FMAs spent on tile padding plus the halo's
-    staging (narrow: bound by FMAs)."""
-    blocks = p.tiles_h * p.tiles_w * p.groups * B
+    wave quantisation over the SMs and over a block's tiles; the outputs
+    computed in tile padding; the halo staged per output (wide, k <= 11:
+    bytes, so at full weight; narrow: against the taps each staged value
+    feeds); and, weakly, threads short of the SM's fill. Its weights were
+    fitted to `chip_smoke.py --kernel A --sweep` on an H100 (PERF.md,
+    PR 8): over the main-path shapes its pick is within 14 % of the best
+    tile measured."""
+    blocks = p.grid[0] * p.grid[1]
     slots = SMS * p.blocks_per_sm
-    wave = -(-blocks // slots) * slots / blocks
+    n_tiles = B * p.tiles_h * p.tiles_w
+    wave = (-(-blocks // slots) * slots / blocks
+            * -(-n_tiles // p.grid[0]) * p.grid[0] / n_tiles)
     outputs = H * W
     staged = p.tiles_h * p.tiles_w * p.rows * (p.twt * p.tws + k - 1)
     padded = p.tiles_h * p.th * p.tiles_w * p.twt * p.tws
     if k <= WIDE_MAX_K:
         occ = min(1.0, p.threads * p.blocks_per_sm / 1024)
-        return wave * (1 + staged / outputs) / occ
+        return wave * padded / outputs * (1 + staged / outputs) / occ ** 0.25
     occ = min(1.0, p.threads * p.blocks_per_sm / 512)
     taps = min(k, H) * min(k, W)
-    return wave * (padded / outputs + 4 * staged / outputs / taps) / occ
+    return wave * (padded / outputs + 16 * staged / outputs / taps) / occ ** 0.25
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,11 +125,12 @@ def lk_plans(B: int, H: int, W: int, C: int, k: int, dtype) -> tuple:
     tile of at most MAX_THREADS threads whose shared memory fits, only
     those with two or more resident blocks per SM where there are any."""
     esize = 2 if dtype == torch.bfloat16 else 4
-    lanes = (128 if k <= WIDE_MAX_K else 32) // esize // 2
+    wide = k <= WIDE_MAX_K
+    lanes = (128 // esize if wide else 8) // 2
     cands = [_make_plan(B, H, W, C, k, esize, t, s)
              for t in range(1, min(H, 64) + 1)
              for s in range(1, -(-W // TWT) + 1)
-             if lanes * t * s <= MAX_THREADS]
+             if lanes * t * s <= MAX_THREADS[wide]]
     cands = [p for p in cands if p.smem <= SMEM_PER_BLOCK and p.blocks_per_sm >= 1]
     if any(p.blocks_per_sm >= 2 for p in cands):
         cands = [p for p in cands if p.blocks_per_sm >= 2]
@@ -154,33 +174,55 @@ def depthwise_plain(x, w, b: Optional[torch.Tensor] = None):
     return F.conv2d(x, w, b, padding=w.shape[-1] // 2, groups=x.shape[1])
 
 
+_ENTRY = {torch.bfloat16: "ppea_lk_dwconv_bf16", torch.float32: "ppea_lk_dwconv_f32"}
+_CL = torch.channels_last
+
+
 def _validate(x, w, b):
+    """Raise on inputs kernel A does not take. Reads each tensor attribute
+    once: host time is a cost of the small convs."""
     if x.dim() != 4:
         raise ValueError(f"lk_depthwise: x must be [B, C, H, W], got {tuple(x.shape)}")
-    B, C, H, W = x.shape
-    k = w.shape[-1] if w.dim() == 4 else -1
-    if w.shape != (C, 1, k, k) or k % 2 == 0 or not 1 <= k <= MAX_K:
+    C = x.shape[1]
+    wshape = w.shape
+    k = wshape[-1] if len(wshape) == 4 else -1
+    if wshape != (C, 1, k, k) or not k & 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"lk_depthwise: w must be [C={C}, 1, k, k] with odd "
-                         f"k <= {MAX_K}, got {tuple(w.shape)}")
-    if b is not None and b.shape != (C,):
-        raise ValueError(f"lk_depthwise: bias must be [{C}], got {tuple(b.shape)}")
-    allowed = (torch.bfloat16, torch.float32)
-    for name, t in (("x", x), ("w", w), ("bias", b)):
-        if t is None:
-            continue
-        if t.dtype != x.dtype or t.dtype not in allowed:
-            raise TypeError(f"lk_depthwise: {name} is {t.dtype}; expected "
-                            f"one of {allowed}, all the same dtype")
-        if t.device != x.device:
-            raise ValueError(f"lk_depthwise: {name} on {t.device}, x on {x.device}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+                         f"k <= {MAX_K}, got {tuple(wshape)}")
+    dtype, device = x.dtype, x.device
+    if dtype not in _ENTRY or w.dtype != dtype:
+        raise TypeError(f"lk_depthwise: x is {dtype}, w {w.dtype}; expected "
+                        f"one of {tuple(_ENTRY)}, both the same")
+    if w.device != device:
+        raise ValueError(f"lk_depthwise: w on {w.device}, x on {device}")
+    if b is not None:
+        if b.shape != (C,):
+            raise ValueError(f"lk_depthwise: bias must be [{C}], got {tuple(b.shape)}")
+        if b.dtype != dtype:
+            raise TypeError(f"lk_depthwise: bias is {b.dtype}, x {dtype}")
+        if b.device != device:
+            raise ValueError(f"lk_depthwise: bias on {b.device}, x on {device}")
+        if not b.is_contiguous():
+            raise ValueError("lk_depthwise: bias must be contiguous")
+    if not x.is_contiguous(memory_format=_CL):
         raise ValueError("lk_depthwise: x must be channels_last contiguous")
-    if not w.is_contiguous() or (b is not None and not b.is_contiguous()):
-        raise ValueError("lk_depthwise: w and bias must be contiguous")
-    return B, C, H, W, k
+    if not w.is_contiguous():
+        raise ValueError("lk_depthwise: w must be contiguous")
 
 
-_ENTRY = {torch.bfloat16: "ppea_lk_dwconv_bf16", torch.float32: "ppea_lk_dwconv_f32"}
+def _args(B, H, W, C, k, flip, p: LKPlan):
+    """The kernel's int arguments, as the C entry reads them."""
+    return (ctypes.c_int * 13)(B, H, W, C, k, int(flip), p.th, p.tws, p.cb,
+                               p.rows, p.pitch, p.smem, p.grid[0])
+
+
+@functools.lru_cache(maxsize=None)
+def lk_launch_args(B, H, W, C, k, dtype, flip):
+    """`_args` under `lk_plan`, built once per shape."""
+    return _args(B, H, W, C, k, flip, lk_plan(B, H, W, C, k, dtype))
+
+
+_fns: dict = {}  # dtype -> the library's entry point
 
 
 def _launch(x, w, b, counter: str, flip: bool = False, plan=None):
@@ -189,20 +231,23 @@ def _launch(x, w, b, counter: str, flip: bool = False, plan=None):
     counts the launch under `counter`."""
     B, C, H, W = x.shape
     k = w.shape[-1]
-    if x.data_ptr() % 16:
+    dtype = x.dtype
+    x_ptr = x.data_ptr()
+    if x_ptr % 16:
         raise ValueError("lk_depthwise: x must be 16-byte aligned")
-    if B > 65535:
-        raise ValueError(f"lk_depthwise: at most 65535 images, got {B}")
-    p = plan or lk_plan(B, H, W, C, k, x.dtype)
-    y = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
-    entry = _ENTRY[x.dtype]
-    err = getattr(library(), entry)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-        y.data_ptr(), B, H, W, C, k, int(flip), p.th, p.tws, p.cb, p.pitch,
-        p.smem, torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, entry)
+    args = (lk_launch_args(B, H, W, C, k, dtype, flip) if plan is None
+            else _args(B, H, W, C, k, flip, plan))
+    y = torch.empty_like(x)  # channels_last, as x is
+    fn = _fns.get(dtype)
+    if fn is None:
+        fn = _fns[dtype] = getattr(library(), _ENTRY[dtype])
+    # the current stream's handle without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = fn(x_ptr, w.data_ptr(), b.data_ptr() if b is not None else None,
+             y.data_ptr(), args, stream)
+    check(err, _ENTRY[dtype])
     launch_counts[counter] += 1
-    return y.permute(0, 3, 1, 2)
+    return y
 
 
 def lk_depthwise(x, w, b: Optional[torch.Tensor] = None):

@@ -205,14 +205,21 @@ LK_RAGGED = [(20, 9, 21, 7), (7, 9, 21, 5), (20, 9, 21, 27), (13, 11, 23, 9),
 
 def _lk_plan_coverage(B, H, W, C, k, dtype):
     """Walk kernel A's blocks and threads as csrc/lk_dwconv.cu maps them
-    (tile = blockIdx.x, channel group = blockIdx.y, image = blockIdx.z;
-    thread = channel pair, row, strip) and count how often each output row,
-    column and channel is written; the map is a product of the three."""
+    (channel group = blockIdx.y; block blockIdx.x takes tiles blockIdx.x,
+    + gridDim.x, ... of the B * tiles_h * tiles_w (image, tile) pairs;
+    thread = channel pair, row, strip) and count how often each output
+    (image, row, column, channel) is written; per image the map is a
+    product of rows, columns and channels."""
     p = lk_plan(B, H, W, C, k, dtype)
     lanes = p.cb // 2
     tw = p.twt * p.tws
-    assert p.grid == (p.tiles_h * p.tiles_w, p.groups, B)
-    assert p.threads == lanes * p.th * p.tws <= MAX_THREADS
+    n_tiles = B * p.tiles_h * p.tiles_w
+    assert p.grid[1] == p.groups and 1 <= p.grid[0] <= n_tiles
+    seen = np.zeros(n_tiles, int)
+    for bx in range(p.grid[0]):
+        seen[bx::p.grid[0]] += 1
+    assert (seen == 1).all()  # each (image, tile) by one block, once
+    assert p.threads == lanes * p.th * p.tws <= MAX_THREADS[k <= WIDE_MAX_K]
     tids = np.arange(p.threads)
     lane, r, s = tids % lanes, tids // lanes % p.th, tids // (lanes * p.th)
     assert len({*zip(lane, r, s)}) == p.threads
@@ -232,11 +239,14 @@ def _lk_plan_coverage(B, H, W, C, k, dtype):
             np.add.at(chans, cc[cc < C], 1)
     assert (rows == 1).all() and (cols == 1).all() and (chans == 1).all()
     esize = 2 if dtype == torch.bfloat16 else 4
-    assert p.cb * esize == (128 if k <= WIDE_MAX_K else 32)
-    assert p.pitch >= tw + k - 1 and (k <= WIDE_MAX_K or p.pitch % 4 == 1)
+    wide = k <= WIDE_MAX_K
+    assert p.cb == (128 // esize if wide else 8)  # narrow: f32 in shared memory
+    sesize = esize if wide else 4
+    assert p.pitch >= tw + k - 1 and (wide or p.pitch % 4 == 1)
     assert p.rows == min(p.th + k - 1, H)
-    assert p.smem == (k * k + p.rows * p.pitch) * p.cb * esize <= SMEM_PER_BLOCK
-    assert p.groups <= 65535 and B <= 65535
+    assert p.nbuf == (2 if wide else 1)
+    assert p.smem == (k * k + p.nbuf * p.rows * p.pitch) * p.cb * sesize <= SMEM_PER_BLOCK
+    assert p.groups <= 65535
     return p
 
 
