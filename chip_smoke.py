@@ -415,36 +415,47 @@ def _clocks(tag):
     print(f"clocks {tag}: {smi.stdout.strip()}")
 
 
-def _device_us(fn, iters=10):
-    """Device time per call of `fn` in us: torch.profiler's kernel time
-    over `iters` calls, after one warm call. A trace that holds no kernel
-    (the profiler drops one now and then) is taken again, up to 3 times."""
+def _device_us(fn, iters=20, reps=5):
+    """Device time per call of `fn` in us: `iters` calls captured in one
+    CUDA graph, replayed `reps` times between two CUDA events, after three
+    warm calls. The graph takes the host out of the time (a small conv's
+    launch costs more host time than device time) and, unlike a
+    torch.profiler trace, drops no kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_time_total > 0 and "Memset" not in e.key)
-        if total > 0:
-            return total / iters
-    raise AssertionError("torch.profiler recorded no device time in 3 traces")
+    return start.elapsed_time(end) * 1e3 / (iters * reps)
 
 
 def sweep_lk_plans(dev, rng):
     """`--kernel A --sweep` only: per main-path shape and type, the
-    forward's device time (torch.profiler) under the best plan `lk_plans`
-    ranks for each strip count, so the plan's model can be held against
-    the card; at k <= 7 also cuDNN's time, measured in the same state of
-    the card (after no long cuDNN call)."""
+    forward's device time (`_device_us`) under `lk_plan`'s pick, then
+    every plan `lk_plans` ranks at k <= 7 and the best-ranked for each
+    strip and row count above, so
+    the plan's model can be held against the card; at k <= 7 also
+    cuDNN's time and that of a plain copy of x (the same bytes in and out:
+    the practical floor of a bytes-bound conv)."""
     import torch
 
-    from ppeadepth_tpu_torch.kernels.lk_conv import _launch, depthwise_plain, lk_plans
+    from ppeadepth_tpu_torch.kernels.lk_conv import (
+        _launch, depthwise_plain, lk_plan, lk_plans)
 
     for B, H, W, C, k in _lk_shapes():
         for dtype in (torch.bfloat16, torch.float32):
@@ -452,19 +463,25 @@ def sweep_lk_plans(dev, rng):
                 dev).to(dtype).permute(0, 3, 1, 2)
             w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype(
                 "float32")).to(dev).to(dtype)
-            plans, seen = [], set()
-            for p in lk_plans(B, H, W, C, k, dtype):
-                if (p.th, p.tws) not in seen and len(plans) < 8 and (
-                        p.tws not in {q.tws for q in plans} or
-                        p.th not in {q.th for q in plans}):
-                    seen.add((p.th, p.tws))
-                    plans.append(p)
+            plans = [lk_plan(B, H, W, C, k, dtype), *lk_plans(B, H, W, C, k, dtype)]
+            if k > 7:  # the best-ranked for each strip count and row count
+                plans = [p for i, p in enumerate(plans) if all(
+                    p.tws != q.tws or p.th != q.th for q in plans[:i])]
+                plans = [p for i, p in enumerate(plans)
+                         if p.tws not in {q.tws for q in plans[:i]}
+                         or p.th not in {q.th for q in plans[:i]}][:8]
             us = [_device_us(lambda p=p: _launch(x, w, None, "lk_dwconv", plan=p))
                   for p in plans]
             lib = _device_us(lambda: depthwise_plain(x, w)) if k <= 7 else None
-            print(f"kernel A sweep [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: " + "; ".join(
-                f"th={p.th} tws={p.tws} {t:.2f} us" for p, t in zip(plans, us))
-                + (f"; cuDNN {lib:.2f} us" if lib is not None else ""))
+            copy = _device_us(x.clone) if k <= 7 else None
+            best = min(range(len(plans)), key=us.__getitem__)
+            print(f"kernel A sweep [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: "
+                  f"plan th={plans[0].th} tws={plans[0].tws} nbuf={plans[0].nbuf} "
+                  f"{us[0]:.2f} us, best th={plans[best].th} tws={plans[best].tws} "
+                  f"nbuf={plans[best].nbuf} {us[best]:.2f} us"
+                  + (f", cuDNN {lib:.2f} us, copy of x (x.clone) {copy:.2f} us"
+                     if lib is not None else "") + "; all: "
+                  + " ".join(f"{p.th}/{p.tws}/{p.nbuf}:{t:.2f}" for p, t in zip(plans, us)))
 
 
 def _kitti_K(height, width, batch):

@@ -17,58 +17,51 @@
 // throughout; both accumulate in f32. `flip` reads w[c, k-1-dy, k-1-dx]
 // in place, so the input gradient needs no flipped copy of the kernel.
 //
-// What bounds it on Hopper, by k:
-//   * k <= 7 (the stem's 3x3, every block's 5x5 small kernel): bytes. At
-//     k=3 an output takes 9 multiply-adds per 2 or 4 bytes in and out; the
-//     card reaches its 3.35 TB/s only with many 16-byte loads in flight, so
-//     the "wide" instances take 128 bytes of channels per block (64 bf16,
-//     32 f32), use little shared memory and few registers, and so hold
-//     several blocks on each SM whose loads overlap the others' FMAs;
-//   * k >= 13 (the large kernels): CUDA-core FMAs. Each input value is
-//     reused up to k*k times (961 at k=31), against which the halo's load
-//     is a few per cent. The "narrow" instances take 8 channels per
-//     block and keep them in shared memory as f32 (bf16 is widened once as
-//     it is staged, not once per tap), so that the k*k weights (31 KB at
-//     k=31) and a halo of up to ~80 KB fit twice on an SM: two resident
-//     blocks, one loading while the other multiplies.
-//   The tensor cores stay idle: a depthwise conv has no reduction over
-//   channels to feed them.
+// One template, two families of instances; `lk_plan` (kernels/lk_conv.py)
+// picks the instance, the tile and the grid, and the host launches with its
+// numbers. Common to both:
+//   * k is a template parameter at the configurations' sizes (3, 5, 7, 13,
+//     27, 29, 31); one instance per family takes any other odd k <= 31 at
+//     run time (same tiling, weights read from shared memory per tap);
+//   * a thread owns two neighbouring channels (bf16x2 / float2 shared
+//     loads) of TWT = 10 neighbouring outputs of one row; 10 divides every
+//     stage width (320, 160, 80, 40, 20), so no thread column idles. Per
+//     kernel row it keeps that row's k weight pairs in registers and
+//     streams the TWT + k - 1 input pairs past them: k * TWT * 2 FMAs per
+//     2k + TWT - 1 shared loads, fully unrolled, no predicate. Kernel rows
+//     are clipped to those landing inside the image;
+//   * shared memory holds the block's k*k weights, read as 16-byte vectors
+//     of the group's contiguous [channel][k*k] run and written transposed
+//     to [tap][channel] (flipped in place for dx), and the halo rows that
+//     exist, min(TH + k - 1, H): rows outside the image are neither
+//     stored nor multiplied.
 //
-// Design (one template for all k; `lk_plan` in kernels/lk_conv.py picks the
-// tile and the host launches with its numbers):
-//   * k is a template parameter for the configurations' sizes (3, 5, 7, 13,
-//     27, 29, 31); one instance takes any other odd k <= 31 at run time,
-//     with the same tiling and a tap loop that reads its weights from
-//     shared memory;
-//   * a block = one image, a TH x (TWS * TWT) output tile and CB channels;
-//     a thread = two neighbouring channels (bf16x2 / float2 shared loads)
-//     of TWT = 10 neighbouring outputs of one row, so 10 divides every
-//     stage width (320, 160, 80, 40, 20) and no thread column idles. The
-//     plan chooses TH and TWS per shape: at stages 2-3 TH is the whole
-//     image height;
-//   * shared memory holds the block's k*k weights, staged once per block by
-//     threads that walk each channel's contiguous k*k run (coalesced reads)
-//     and write it transposed to [tap][channel], and the halo rows that
-//     exist, min(TH + k - 1, H), copied as 16-byte cp.async vectors (zero
-//     fill off the image's columns); halo rows outside the image are
-//     neither stored nor multiplied. The narrow layout's row pitch is
-//     padded to 1 mod 4 pixels so the four pixels a warp reads fall in
-//     four different bank quarters;
-//   * wide instances are persistent: a block owns one channel group, walks
-//     its share of the (image, tile) pairs and fetches the next tile's halo
-//     into a second buffer while it multiplies the current one, so each SM
-//     streams without pause. Narrow instances launch a block per tile with
-//     one buffer: a tile's FMAs outlast its load many times over, and the
-//     second resident block covers the load;
-//   * per kernel row a thread keeps that row's k weight pairs in registers
-//     and streams the TWT + k - 1 input pairs past them, k * TWT * 2 FMAs
-//     per 2k + TWT - 1 shared loads, fully unrolled with no predicate;
-//     kernel rows are clipped to those landing inside the image;
-//   * __launch_bounds__(256, 2) for the narrow instances (at most 128
-//     registers a thread: k=31 keeps 62 of them for its weights) and
-//     (512, 2) for the wide ones (at most 64), so two blocks of the most
-//     threads are resident whenever the plan's shared memory fits beside
-//     them.
+// Wide instances, k <= 11 (the stem's 3x3, every block's 5x5): bound by
+// bytes (9-49 multiply-adds per 2 or 4 bytes in and out). A block takes 128
+// bytes of channels (64 bf16, 32 f32) and up to 512 threads at <= 64
+// registers (__launch_bounds__(512, 2)). It is persistent: it owns one
+// channel group, loads its weights once, walks its share of the (image,
+// tile) pairs and keeps the next one or two tiles' halos in flight as
+// 16-byte cp.async copies (zero-filled off the image) in a ring of 2 or 3
+// buffers while it multiplies the current one, so each SM streams without
+// pause.
+//
+// Narrow instances, k >= 13 (the large kernels): bound by CUDA-core FMAs
+// (each input value feeds up to k*k = 961 outputs; the halo's load is a
+// few per cent). A block takes 8 channels, kept in shared memory as f32
+// (bf16 is widened once as it is staged, not once per tap), so the k*k
+// weights (31 KB at k=31) and a halo of up to ~80 KB fit twice on an SM:
+// two resident blocks (__launch_bounds__(256, 2), <= 128 registers; k=31
+// keeps 62 of them for its weights), one loading while the other
+// multiplies. The grid has a block per tile; at stages 0 and 2-3 the tile
+// is the whole image height, so no thread row idles and no halo row is
+// loaded twice. The row pitch is padded to 1 mod 4 pixels, so the four
+// 32-byte pixels of four rows that a quarter warp reads fall in four bank
+// quarters.
+//
+// The tensor cores stay idle: a depthwise conv has no reduction over
+// channels to feed them (a Toeplitz form of the bf16 path, what the TPU
+// did on its MXU, is a different algorithm against a different bound).
 //
 // Where it runs: all four encoder stages. The JAX package gated its banded
 // kernel to stages 0-1 (banded_conv.py `stage_backends`) because of the
@@ -82,7 +75,7 @@
 
 namespace {
 
-constexpr int KMAX = 31;          // largest supported kernel
+constexpr int KMAX = 31;  // largest supported kernel
 constexpr int TWT = 10;           // output columns per thread
 // threads per block (lk_plan keeps to it): __launch_bounds__(MAX, 2) caps
 // a thread at 64 registers (wide) and 128 (narrow: k=31 keeps 62 of them
@@ -132,14 +125,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // T: element type; K: kernel size, or 0 for the run-time instance (k_rt);
-// CB: channels per block. The block owns channel group blockIdx.y and walks
-// tiles blockIdx.x, + gridDim.x, ... of the n_tiles (image, tile) pairs,
-// each TH rows x TWS strips of TWT columns. The wide instances keep two
-// halo buffers and fetch the next tile's halo with cp.async while they
-// multiply the current one; the narrow ones one (their grid has a block
-// per tile, and a second resident block does the overlapping).
-// `pitch`: the halo's row pitch in pixels; `rows`: its allocated rows.
-template <typename T, int K, bool WIDE>
+// WIDE: the family; NBUF: halo buffers (2 or 3 wide, 1 narrow). The block
+// owns channel group blockIdx.y and walks tiles blockIdx.x, + gridDim.x,
+// ... of the n_tiles (image, tile) pairs, each TH rows x TWS strips of TWT
+// columns, with tiles i+1 .. i+NBUF-1 in flight while it multiplies tile i
+// (the narrow grid has a block per tile: a second resident block does the
+// overlapping). `rows`, `pitch`: a halo buffer's rows and row pitch in
+// pixels.
+template <typename T, int K, bool WIDE, int NBUF>
 __global__ void __launch_bounds__(WIDE ? 512 : 256, 2)
 lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ bias, T* __restrict__ y, int H, int W,
@@ -149,7 +142,6 @@ lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // (bf16 widened once while staged, not once per tap)
   using S = typename std::conditional<WIDE, T, float>::type;
   constexpr int CB = WIDE ? 128 / sizeof(T) : 8;  // channels per block
-  constexpr int NBUF = WIDE ? 2 : 1;
   constexpr int L = CB / 2;            // threads per pixel (channel pairs)
   constexpr int VEC = 16 / sizeof(T);  // elements of x per 16-byte vector
   constexpr int VPP = CB / VEC;        // vectors per pixel (0: bf16 narrow)
@@ -266,19 +258,24 @@ lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     b1 = c + 1 < C ? to_f32(bias[c + 1]) : 0.f;
   }
 
-  int buf = 0;
-  if (blockIdx.x < n_tiles) stage(blockIdx.x, xs0);
-  cp_async_commit();
+  // a ring of NBUF halo buffers: the block's tiles i+1 .. i+NBUF-1 are on
+  // their way while it multiplies tile i (one commit group per tile, empty
+  // past the last)
+  const int stride = gridDim.x;
+  const int buf_elems = rows * pitch * CB;
+#pragma unroll
+  for (int i = 0; i < NBUF - 1; ++i) {
+    const int tt = blockIdx.x + i * stride;
+    if (tt < n_tiles) stage(tt, xs0 + i * buf_elems);
+    cp_async_commit();
+  }
   stage_weights();
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int tn = t + gridDim.x;
-    if constexpr (NBUF == 2) {
-      if (tn < n_tiles) stage(tn, xs0 + (buf ^ 1) * rows * pitch * CB);
-      cp_async_commit();  // (an empty group past the last tile)
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  int buf = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += stride) {
+    const int tn = t + (NBUF - 1) * stride;
+    if (tn < n_tiles) stage(tn, xs0 + (buf + NBUF - 1) % NBUF * buf_elems);
+    cp_async_commit();
+    cp_async_wait<NBUF - 1>();
     __syncthreads();
 
     const int b = t / (tiles_h * tiles_w);
@@ -287,7 +284,7 @@ lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int oh = h0 + r;
     const int ow0 = (tile % tiles_w) * TW + s * TWT;
     if (oh < H && ow0 < W && c < C) {
-      const S* xs = xs0 + buf * rows * pitch * CB;
+      const S* xs = xs0 + buf * buf_elems;
       const int ih_lo = max(0, h0 - half);
       float2 acc[TWT];
 #pragma unroll
@@ -331,23 +328,18 @@ lk_dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
     }
     __syncthreads();  // the buffer is free for the next fetch
-    if constexpr (NBUF == 2) {
-      buf ^= 1;
-    } else {
-      if (tn < n_tiles) stage(tn, xs0);
-      cp_async_commit();
-    }
+    buf = (buf + 1) % NBUF;
   }
 }
 
-template <typename T, int K, bool WIDE>
+template <typename T, int K, bool WIDE, int NBUF>
 int launch(const void* x, const void* w, const void* bias, void* y, int B,
            int H, int W, int C, int k, int flip, int TH, int TWS, int rows,
            int pitch, int smem, int blocks, void* stream) {
   static int opted_in = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lk_dwconv_kernel<T, K, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lk_dwconv_kernel<T, K, WIDE, NBUF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = smem;
@@ -356,47 +348,51 @@ int launch(const void* x, const void* w, const void* bias, void* y, int B,
   const int tiles_w = (W + TWT * TWS - 1) / (TWT * TWS);
   constexpr int CB = WIDE ? 128 / sizeof(T) : 8;
   const dim3 grid(blocks, (C + CB - 1) / CB);
-  lk_dwconv_kernel<T, K, WIDE><<<grid, (CB / 2) * TH * TWS, smem,
+  lk_dwconv_kernel<T, K, WIDE, NBUF><<<grid, (CB / 2) * TH * TWS, smem,
                                (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w, (const T*)bias, (T*)y, H, W, C, k, flip, TH,
       TWS, tiles_h, tiles_w, B * tiles_h * tiles_w, rows, pitch);
   return (int)cudaGetLastError();
 }
 
-// The instances: wide (128 bytes of channels, T in shared memory) for
-// k <= 7, narrow (8 channels, f32 in shared memory) for the large kernels,
-// and the run-time-k instance in both.
+// The instances: wide (128 bytes of channels, T in shared memory, a ring of
+// 2 or 3 halo buffers) for k <= 7, narrow (8 channels, f32 in shared
+// memory, one buffer) for the large kernels, and the run-time-k instance in
+// both.
 template <typename T>
 int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
              int H, int W, int C, int k, int flip, int TH, int TWS, int cb,
-             int rows, int pitch, int smem, int blocks, void* stream) {
+             int rows, int pitch, int smem, int blocks, int nbuf, void* stream) {
   constexpr int WIDE_CB = 128 / sizeof(T);
   const bool wide = cb == WIDE_CB;
   const int threads = (cb / 2) * TH * TWS;
   if (k < 1 || k > KMAX || k % 2 == 0 || B < 1 || H < 1 || W < 1 || C < 1 ||
       TH < 1 || TWS < 1 ||
       threads > (wide ? MAX_THREADS_WIDE : MAX_THREADS_NARROW) || (!wide && cb != 8) ||
-      pitch < TWT * TWS + k - 1 || rows < min(TH + k - 1, H) || blocks < 1) {
+      pitch < TWT * TWS + k - 1 || rows < min(TH + k - 1, H) || blocks < 1 ||
+      (wide ? nbuf != 2 && nbuf != 3 : nbuf != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-#define PPEA_LK(KV, WV) \
-  launch<T, KV, WV>(x, w, bias, y, B, H, W, C, k, flip, TH, TWS, rows, pitch, \
-                    smem, blocks, stream)
+#define PPEA_LK(KV, WV, NB) \
+  launch<T, KV, WV, NB>(x, w, bias, y, B, H, W, C, k, flip, TH, TWS, rows, \
+                        pitch, smem, blocks, stream)
+#define PPEA_LK_WIDE(KV) (nbuf == 3 ? PPEA_LK(KV, true, 3) : PPEA_LK(KV, true, 2))
   if (wide) {
     switch (k) {
-      case 3: return PPEA_LK(3, true);
-      case 5: return PPEA_LK(5, true);
-      case 7: return PPEA_LK(7, true);
-      default: return PPEA_LK(0, true);
+      case 3: return PPEA_LK_WIDE(3);
+      case 5: return PPEA_LK_WIDE(5);
+      case 7: return PPEA_LK_WIDE(7);
+      default: return PPEA_LK_WIDE(0);
     }
   }
   switch (k) {
-    case 13: return PPEA_LK(13, false);
-    case 27: return PPEA_LK(27, false);
-    case 29: return PPEA_LK(29, false);
-    case 31: return PPEA_LK(31, false);
-    default: return PPEA_LK(0, false);
+    case 13: return PPEA_LK(13, false, 1);
+    case 27: return PPEA_LK(27, false, 1);
+    case 29: return PPEA_LK(29, false, 1);
+    case 31: return PPEA_LK(31, false, 1);
+    default: return PPEA_LK(0, false, 1);
   }
+#undef PPEA_LK_WIDE
 #undef PPEA_LK
 }
 
@@ -405,9 +401,9 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
 // x, y: [B, H, W, C] (NHWC memory, 16-byte aligned); w: [C, K, K]; bias:
 // [C] or null; all bf16 (`_bf16`) or all f32 (`_f32`). args: B, H, W, C,
 // K, flip (!= 0: convolve with w[c, K-1-dy, K-1-dx]), then lk_plan's TH,
-// TWS, cb (channels per block), rows and pitch (the halo's), smem (bytes)
-// and blocks (per channel group); one array, so a call converts six
-// arguments, not eighteen. Launches on `stream` and returns
+// TWS, cb (channels per block), rows and pitch (the halo's), smem (bytes),
+// blocks (per channel group) and nbuf (halo buffers: 1 narrow, 2 or 3
+// wide); one array, so a call converts six arguments, not nineteen. Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments no instance
 // takes).
 extern "C" int ppea_lk_dwconv_bf16(const void* x, const void* w,
@@ -415,12 +411,13 @@ extern "C" int ppea_lk_dwconv_bf16(const void* x, const void* w,
                                    void* stream) {
   return dispatch<__nv_bfloat16>(x, w, bias, y, a[0], a[1], a[2], a[3], a[4],
                                  a[5], a[6], a[7], a[8], a[9], a[10], a[11],
-                                 a[12], stream);
+                                 a[12], a[13], stream);
 }
 
 extern "C" int ppea_lk_dwconv_f32(const void* x, const void* w,
                                   const void* bias, void* y, const int* a,
                                   void* stream) {
   return dispatch<float>(x, w, bias, y, a[0], a[1], a[2], a[3], a[4], a[5],
-                         a[6], a[7], a[8], a[9], a[10], a[11], a[12], stream);
+                         a[6], a[7], a[8], a[9], a[10], a[11], a[12], a[13],
+                         stream);
 }

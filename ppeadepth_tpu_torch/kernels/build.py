@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w, bias, y, args (13 ints: lk_conv.lk_launch_args), stream
+    # x, w, bias, y, args (14 ints: lk_conv._args), stream
     "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _P, _P),
     "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _P, _P),
     # x, w_up, b_up, w_down, b_down, hidden, out, M, C, Hp, tile_up,

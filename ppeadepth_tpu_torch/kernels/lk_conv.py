@@ -66,7 +66,7 @@ class LKPlan(NamedTuple):
     blocks_per_sm: int
 
 
-def _make_plan(B, H, W, C, k, esize, th, tws):
+def _make_plan(B, H, W, C, k, esize, th, tws, nbuf=None):
     wide = k <= WIDE_MAX_K
     # wide: 128 bytes of channels, stored as they come; narrow: 8 channels,
     # stored as f32 (bf16 widened once while staged)
@@ -78,9 +78,9 @@ def _make_plan(B, H, W, C, k, esize, th, tws):
     # quarters
     pitch = ww if wide else ww + (1 - ww) % 4
     rows = min(th + k - 1, H)
-    # wide: persistent blocks, the next tile's halo fetched into a second
-    # buffer; narrow: a block per tile
-    nbuf = 2 if wide else 1
+    # wide: persistent blocks, the next one or two tiles' halos fetched
+    # into a ring of buffers; narrow: a block per tile, one buffer
+    nbuf = nbuf or (2 if wide else 1)
     smem = (k * k + nbuf * rows * pitch) * cb * sesize
     threads = cb // 2 * th * tws
     tiles_h, tiles_w, groups = -(-H // th), -(-W // tw), -(-C // cb)
@@ -127,19 +127,34 @@ def lk_plans(B: int, H: int, W: int, C: int, k: int, dtype) -> tuple:
     esize = 2 if dtype == torch.bfloat16 else 4
     wide = k <= WIDE_MAX_K
     lanes = (128 // esize if wide else 8) // 2
-    cands = [_make_plan(B, H, W, C, k, esize, t, s)
+    cands = [_make_plan(B, H, W, C, k, esize, t, s, n)
              for t in range(1, min(H, 64) + 1)
              for s in range(1, -(-W // TWT) + 1)
+             for n in ((2, 3) if wide else (1,))
              if lanes * t * s <= MAX_THREADS[wide]]
     cands = [p for p in cands if p.smem <= SMEM_PER_BLOCK and p.blocks_per_sm >= 1]
     if any(p.blocks_per_sm >= 2 for p in cands):
         cands = [p for p in cands if p.blocks_per_sm >= 2]
-    return tuple(sorted(cands, key=lambda p: (_plan_cost(p, B, H, W, k), -p.threads)))
+    return tuple(sorted(cands, key=lambda p: (_plan_cost(p, B, H, W, k), p.nbuf,
+                                              -p.threads)))
+
+
+# (H, W, C, k, dtype) -> (th, tws, nbuf): tiles measured faster on an
+# H100 than the model's pick by more than 3 % (`chip_smoke.py --kernel A
+# --sweep`; PERF.md, PR 8), for any batch
+_TUNED = {(96, 320, 128, 3, torch.float32): (2, 4, 3),
+          (48, 160, 128, 5, torch.bfloat16): (12, 1, 3),
+          (12, 40, 512, 5, torch.float32): (6, 1, 3),
+          (6, 20, 1024, 5, torch.bfloat16): (6, 1, 3)}
 
 
 def lk_plan(B: int, H: int, W: int, C: int, k: int, dtype) -> LKPlan:
-    """The launch kernel A takes for these shapes: the first of `lk_plans`.
-    Pure Python: the CPU tests check that it covers every output once."""
+    """The launch kernel A takes for these shapes: a measured tile from
+    `_TUNED`, else the first of `lk_plans`. Pure Python: the CPU tests
+    check that it covers every output once."""
+    tuned = _TUNED.get((H, W, C, k, dtype))
+    if tuned is not None:
+        return _make_plan(B, H, W, C, k, 2 if dtype == torch.bfloat16 else 4, *tuned)
     return lk_plans(B, H, W, C, k, dtype)[0]
 
 
@@ -212,8 +227,8 @@ def _validate(x, w, b):
 
 def _args(B, H, W, C, k, flip, p: LKPlan):
     """The kernel's int arguments, as the C entry reads them."""
-    return (ctypes.c_int * 13)(B, H, W, C, k, int(flip), p.th, p.tws, p.cb,
-                               p.rows, p.pitch, p.smem, p.grid[0])
+    return (ctypes.c_int * 14)(B, H, W, C, k, int(flip), p.th, p.tws, p.cb,
+                               p.rows, p.pitch, p.smem, p.grid[0], p.nbuf)
 
 
 @functools.lru_cache(maxsize=None)

@@ -244,7 +244,7 @@ def _lk_plan_coverage(B, H, W, C, k, dtype):
     sesize = esize if wide else 4
     assert p.pitch >= tw + k - 1 and (wide or p.pitch % 4 == 1)
     assert p.rows == min(p.th + k - 1, H)
-    assert p.nbuf == (2 if wide else 1)
+    assert p.nbuf in ((2, 3) if wide else (1,))
     assert p.smem == (k * k + p.nbuf * p.rows * p.pitch) * p.cb * sesize <= SMEM_PER_BLOCK
     assert p.groups <= 65535
     return p
