@@ -76,7 +76,7 @@
 namespace {
 
 constexpr int KMAX = 31;  // largest supported kernel
-constexpr int TWT = 10;           // output columns per thread
+constexpr int TWT = 10;   // output columns per thread
 // threads per block (lk_plan keeps to it): __launch_bounds__(MAX, 2) caps
 // a thread at 64 registers (wide) and 128 (narrow: k=31 keeps 62 of them
 // for its weights)

@@ -1,4 +1,5 @@
-"""Large-kernel depthwise conv: BN folding, kernel merging, and kernel A.
+"""Depthwise conv (odd k up to 31): BN folding, kernel merging, kernel A and
+its launch plan (`lk_plan`: tile, instance and grid per shape).
 
 Counterparts in the JAX package:
   * `fuse_conv_bn`, `merge_reparam_kernels`: kernels/lk_conv.py:73-107;
@@ -99,9 +100,9 @@ def _plan_cost(p, B, H, W, k):
     computed in tile padding; the halo staged per output (wide, k <= 11:
     bytes, so at full weight; narrow: against the taps each staged value
     feeds); and, weakly, threads short of the SM's fill. Its weights were
-    fitted to `chip_smoke.py --kernel A --sweep` on an H100 (PERF.md,
-    PR 8): over the main-path shapes its pick is within 14 % of the best
-    tile measured."""
+    fitted to `chip_smoke.py --kernel A --sweep` on an H100 (PERF.md);
+    `_TUNED` holds the main-path shapes where its pick measured more than
+    3 % slower than the best tile."""
     blocks = p.grid[0] * p.grid[1]
     slots = SMS * p.blocks_per_sm
     n_tiles = B * p.tiles_h * p.tiles_w
@@ -141,7 +142,7 @@ def lk_plans(B: int, H: int, W: int, C: int, k: int, dtype) -> tuple:
 
 # (H, W, C, k, dtype) -> (th, tws, nbuf): tiles measured faster on an
 # H100 than the model's pick by more than 3 % (`chip_smoke.py --kernel A
-# --sweep`; PERF.md, PR 8), for any batch
+# --sweep`; PERF.md), for any batch
 _TUNED = {(96, 320, 128, 3, torch.float32): (2, 4, 3),
           (48, 160, 128, 5, torch.bfloat16): (12, 1, 3),
           (12, 40, 512, 5, torch.float32): (6, 1, 3),

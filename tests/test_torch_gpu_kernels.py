@@ -250,6 +250,27 @@ def test_wrappers_raise_on_cuda_float32(cuda):
         ffn_fused(xf, p)
 
 
+def test_lk_dwconv_raises_on_inputs_it_does_not_take(cuda):
+    """On a card kernel A launches or raises, and never falls back to the
+    plain version: an x that is not 16-byte aligned, an even k or a bias
+    of another type raise, and nothing is counted."""
+    B, C, H, W = 1, 16, 5, 7
+    base = torch.zeros(B * C * H * W + 1, device=cuda, dtype=torch.bfloat16)
+    x = base.as_strided((B, C, H, W), (H * W * C, 1, W * C, C), 1)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    w = torch.zeros(C, 1, 3, 3, device=cuda, dtype=torch.bfloat16)
+    n0 = dict(kernels.launch_counts)
+    with pytest.raises(ValueError):
+        lk_depthwise(x, w)
+    x = torch.zeros(B, C, H, W, device=cuda, dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        lk_depthwise(x, torch.zeros(C, 1, 4, 4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        lk_depthwise(x, w, torch.zeros(C, device=cuda))
+    assert kernels.launch_counts == n0
+
+
 @pytest.mark.parametrize("B,C,H,W,k", [
     *((2, *s) for s in STAGES), (2, 20, 9, 21, 7),
     *((2, 64, 12, 40, k) for k in LK_KS), *LK_RAGGED])
