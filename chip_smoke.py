@@ -12,6 +12,14 @@
     python3 chip_smoke.py --kernel B   # build, then kernel B's check and
                                        # times alone, its launches profiled
                                        # and its host time (no "ok" line)
+    python3 chip_smoke.py --kernel C   # build, then kernel C's check and its
+    python3 chip_smoke.py --kernel D   # device time per launch at every path
+                                       # shape beside the plain version (D:
+                                       # and F.grid_sample) and the bound; no
+                                       # "ok" line; --sweep: other launch
+                                       # plans and a diagnostic each (C: every
+                                       # gather at one corner; D: a copy of
+                                       # the output)
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
@@ -441,6 +449,7 @@ def _device_us(fn, iters=20, reps=5):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    graph.reset()  # free the graph's memory pool now, not at collection
     return start.elapsed_time(end) * 1e3 / (iters * reps)
 
 
@@ -512,20 +521,17 @@ def _pose_4x4(rng, batch):
     return T
 
 
-def check_plane_sweep(dev, rng):
-    """Kernel C against its plain version at the student's main-path shape
-    (B=8, 48x160, C=128, 96 log bins 0.1-10, 1/4-scale KITTI intrinsics, a
-    non-degenerate pose), with f32 and with bf16 features (the main path's
-    dtype, timed)."""
+def _sweep_geometry(dev, rng, B, C, H, W, D):
+    """Kernel C's geometry at B items: (A, t, bins) of non-degenerate poses
+    under 1/4-scale KITTI intrinsics and D log bins 0.1-10, the mask of
+    samples within C_NEAR_PX of an edge-mask boundary [B, D, H, W], and the
+    count of observed samples (inside both masks)."""
     import torch
 
-    from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
     from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
 
-    C, H, W, _, _ = _stage_shapes()[0]
-    D = SHIPPED_B.num_depth_bins
-    K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(H, W, BATCH))
-    T = torch.from_numpy(_pose_4x4(rng, BATCH)).to(dev)
+    K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(H, W, B))
+    T = torch.from_numpy(_pose_4x4(rng, B)).to(dev)
     P = (K @ T)[:, :3]
     A = (P[:, :, :3] @ invK[:, :3, :3]).contiguous()
     t = P[:, :, 3].contiguous()
@@ -539,48 +545,149 @@ def check_plane_sweep(dev, rng):
                             torch.arange(W, device=dev), indexing="ij")
     border = ((gy >= 2) & (gy < H - 2) & (gx >= 2) & (gx < W - 2)).reshape(-1)
     samples = (edge & border).sum().item()
-    near = near.reshape(BATCH, D, H, W)
+    return A, t, bins, near.reshape(B, D, H, W), samples
+
+
+def _sweep_feats(dev, rng, B, C, H, W, dtype):
+    """One [B, C, H, W] channels_last feature map of `dtype`, N(0, 1)."""
+    import torch
+
+    return torch.from_numpy(rng.randn(B, H, W, C).astype("float32")).to(
+        dev).to(dtype).permute(0, 3, 1, 2)
+
+
+def _hold_sweep(tag, got, ref, near, samples):
+    """Kernel C's limits: at most C_BEYOND of the entries beyond C_REL_TOL x
+    max|ref|, each within C_NEAR_PX of an edge-mask boundary; returns
+    max|d|."""
+    diff = (got - ref).abs()
+    peak = ref.abs().max().item()
+    beyond = diff > C_REL_TOL * peak
+    n_beyond = beyond.sum().item()
+    n_off = (beyond & ~near).sum().item()
+    print(f"{tag}: max|d|={diff.max().item():.3e} max|ref|={peak:.3e}; "
+          f"{n_beyond} of {diff.numel()} entries beyond {C_REL_TOL:g} x "
+          f"max|ref| ({n_off} of them off a mask boundary); observed "
+          f"samples {samples} of {diff.numel()}; tol: at most "
+          f"{C_BEYOND:g} of the entries beyond, each within {C_NEAR_PX:g} px "
+          f"of a mask boundary")
+    if n_off or n_beyond > C_BEYOND * diff.numel():
+        raise AssertionError(f"{tag} disagrees: {n_beyond} beyond, {n_off} "
+                             f"off a boundary")
+    if not (ref > 0).float().mean().item() > 0.1:
+        raise AssertionError(f"{tag}: too few samples observed")
+    return diff.max().item()
+
+
+def _sweep_bound(B, C, H, W, D, samples, itemsize):
+    """(bound ms, what bounds it, flop, bytes) of one kernel C call: per
+    observed sample 12 f32 operations a channel (bilinear 9, sub, abs,
+    sum), per (item, bin, pixel) ~12 for the projection; the features read
+    once, the output written once."""
+    flop = 12 * C * samples + 12 * B * D * H * W
+    nbytes = 2 * B * H * W * C * itemsize + 4 * B * D * H * W
+    return (*_bound_ms(nbytes, flop, F32_FLOP_PER_S), flop, nbytes)
+
+
+def check_plane_sweep(dev, rng):
+    """Kernel C against its plain version at the student's main-path shape
+    (B=8, 48x160, C=128, 96 log bins 0.1-10, 1/4-scale KITTI intrinsics, a
+    non-degenerate pose), with f32 and with bf16 features; device time per
+    launch (`_device_us`) of each, the bf16 one (the main path's) kept."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
+
+    C, H, W, _, _ = _stage_shapes()[0]
+    D = SHIPPED_B.num_depth_bins
+    A, t, bins, near, samples = _sweep_geometry(dev, rng, BATCH, C, H, W, D)
 
     worst, out = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
-        def feats():
-            return torch.from_numpy(rng.randn(BATCH, H, W, C).astype("float32")
-                                    ).to(dev).to(dtype).permute(0, 3, 1, 2)
-
-        cur, lk = feats(), feats()
+        cur = _sweep_feats(dev, rng, BATCH, C, H, W, dtype)
+        lk = _sweep_feats(dev, rng, BATCH, C, H, W, dtype)
         got = plane_sweep(cur, lk, A, t, bins)
         torch.cuda.synchronize()
         ref = plane_sweep_plain(cur, lk, A, t, bins)
-        diff = (got - ref).abs()
-        peak = ref.abs().max().item()
-        beyond = diff > C_REL_TOL * peak
-        n_beyond = beyond.sum().item()
-        n_off = (beyond & ~near).sum().item()
         tag = f"kernel C  [{BATCH},{H},{W},{C}] D={D} {str(dtype)[6:]}"
-        print(f"{tag}: max|d|={diff.max().item():.3e} max|ref|={peak:.3e}; "
-              f"{n_beyond} of {diff.numel()} entries beyond {C_REL_TOL:g} x "
-              f"max|ref| ({n_off} of them off a mask boundary); observed "
-              f"samples {samples} of {BATCH * D * H * W}; tol: at most "
-              f"{C_BEYOND:g} of the entries beyond, each within {C_NEAR_PX:g} px "
-              f"of a mask boundary")
-        if n_off or n_beyond > C_BEYOND * diff.numel():
-            raise AssertionError(f"kernel C disagrees ({dtype}): {n_beyond} "
-                                 f"beyond, {n_off} off a boundary")
-        if not (ref > 0).float().mean().item() > 0.1:
-            raise AssertionError("kernel C check observed too few samples")
-        worst = max(worst, diff.max().item())
-        pl, kk = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
+        worst = max(worst, _hold_sweep(tag, got, ref, near, samples))
+        us = _device_us(lambda: plane_sweep(cur, lk, A, t, bins))
+        pl, ev = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
                             lambda: plane_sweep(cur, lk, A, t, bins), 5)
-        # per observed sample: 12 f32 operations a channel (bilinear 9, sub,
-        # abs, sum); per (item, bin, pixel): ~12 for the projection
-        flop = 12 * C * samples + 12 * BATCH * D * H * W
-        nbytes = 2 * BATCH * H * W * C * cur.element_size() + 4 * BATCH * D * H * W
-        bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
-        print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.2f} TFLOP/s of "
-              f"{flop / 1e9:.2f} GFLOP), plain (torch gather) {pl:.4f} ms/call, "
-              f"bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
-        out = dict(ms=kk, plain_ms=pl, bound_ms=bnd, bound_by=by)
+        bnd, by, flop, nbytes = _sweep_bound(BATCH, C, H, W, D, samples,
+                                             cur.element_size())
+        print(f"{tag} launch: {us:.2f} us ({flop / us / 1e6:.2f} TFLOP/s of "
+              f"{flop / 1e9:.2f} GFLOP, {100 * bnd * 1e3 / us:.1f} % of the "
+              f"bound), CUDA events {ev:.4f} ms/call; plain (torch gather, "
+              f"CUDA events) {pl:.4f} ms, bound {bnd * 1e3:.2f} us ({by}: "
+              f"{nbytes / 1e6:.1f} MB)")
+        out = dict(ms=us / 1e3, plain_ms=pl, bound_ms=bnd, bound_by=by)
     return dict(max_abs_err=worst, library_ms=None, **out)
+
+
+def _sweep_shapes():
+    """(B, C, dtype) of kernel C's calls on the paths at 48x160, D=96:
+    serving (B=8) and the training step (B=12) in bf16, the eval (B=12)
+    in f32, and rep_size l / xl's stage-0 widths (C=192, 256) in bf16."""
+    import torch
+
+    return ((BATCH, 128, torch.bfloat16), (TRAIN_BATCH, 128, torch.bfloat16),
+            (EVAL_BATCH, 128, torch.float32), (BATCH, 192, torch.bfloat16),
+            (BATCH, 256, torch.bfloat16))
+
+
+def time_plane_sweep(dev, rng, sweep):
+    """`--kernel C`: at every shape of `_sweep_shapes`, kernel C held to its
+    plain version, then its device time per launch (`_device_us`) beside
+    the plain version's (CUDA events) and the bound. With `sweep`, also
+    every (g, nv) and block tile, and the chosen plan with every gather
+    pointed at one corner (arithmetic and shuffles without the gather's
+    cost)."""
+    from ppeadepth_tpu_torch.kernels.cost_volume import (
+        SweepPlan, _launch, plane_sweep, plane_sweep_plain, sweep_plan)
+
+    H, W, D = 48, 160, SHIPPED_B.num_depth_bins
+    rows = {}
+    for B, C, dtype in _sweep_shapes():
+        A, t, bins, near, samples = _sweep_geometry(dev, rng, B, C, H, W, D)
+        cur = _sweep_feats(dev, rng, B, C, H, W, dtype)
+        lk = _sweep_feats(dev, rng, B, C, H, W, dtype)
+        tag = f"kernel C  [{B},{H},{W},{C}] D={D} {str(dtype)[6:]}"
+        ref = plane_sweep_plain(cur, lk, A, t, bins)
+        err = _hold_sweep(tag, plane_sweep(cur, lk, A, t, bins), ref, near,
+                          samples)
+        plan = sweep_plan(C, dtype)
+        us = _device_us(lambda: plane_sweep(cur, lk, A, t, bins))
+        (pl,) = _time_turns([lambda: plane_sweep_plain(cur, lk, A, t, bins)], 3)
+        bnd, by, flop, _ = _sweep_bound(B, C, H, W, D, samples,
+                                        cur.element_size())
+        print(f"{tag} launch: {us:.2f} us ({flop / us / 1e6:.2f} TFLOP/s, "
+              f"{100 * bnd * 1e3 / us:.1f} % of the bound), plain "
+              f"{pl * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}); plan {plan}")
+        rows[tag] = dict(us=us, plain_us=pl * 1e3, bound_us=bnd * 1e3,
+                         bound_by=by, max_abs_err=err, plan=list(plan))
+        if not sweep:
+            continue
+        fixed = _device_us(lambda: _launch(cur, lk, A, t, bins, plan, fixed=True))
+        plans = [SweepPlan(g, nv, th, tw)
+                 for g in (4, 8, 16) for nv in (1, 2, 3, 4)
+                 if g * nv * 16 >= C * cur.element_size()
+                 and g * (nv - 1) * 16 < C * cur.element_size()
+                 for th, tw in ((1, 4), (2, 2), (4, 1), (1, 2), (1, 1))]
+        times = []
+        for p in plans:
+            got = _launch(cur, lk, A, t, bins, p)
+            _hold_sweep(f"{tag} {tuple(p)}", got, ref, near, samples)
+            times.append(_device_us(lambda p=p: _launch(cur, lk, A, t, bins, p)))
+        best = min(range(len(plans)), key=times.__getitem__)
+        print(f"kernel C sweep {tag[10:]}: plan {tuple(plan)} {us:.2f} us, "
+              f"every gather at one corner {fixed:.2f} us (gathers "
+              f"{100 * (1 - fixed / us):.1f} % of the time), best "
+              f"{tuple(plans[best])} {times[best]:.2f} us; all (g, nv, th, tw): "
+              + " ".join(f"{tuple(p)}:{x:.2f}" for p, x in zip(plans, times)))
+        rows[tag].update(fixed_corner_us=fixed, best=list(plans[best]),
+                         best_us=times[best])
+    return rows
 
 
 def _warp_inputs(dev, rng, n, height, width):
@@ -639,41 +746,72 @@ def check_warp(dev, rng):
     if not (fwd_err <= D_FWD_TOL and bwd_err <= D_BWD_REL_TOL * bwd_peak):
         raise AssertionError(f"kernel D disagrees: {fwd_err}, {bwd_err}")
 
-    # plain and library timings: the image takes no gradient, as in the loss
-    cl = coords.clone().requires_grad_(True)
-    img_nchw = img.permute(0, 3, 1, 2)
-
-    def library_fwd():
-        return F.grid_sample(img_nchw, cl, mode="bilinear",
-                             padding_mode="border", align_corners=True)
-
-    lib_out = library_fwd()
-    ref_out = warp_border_plain(img, cp)
-    g_nchw = g.permute(0, 3, 1, 2)
+    # device time per launch (CUDA graph) of the kernel and of the library
+    # call (`F.grid_sample`; its backward `aten.grid_sampler_2d_backward`
+    # with the image gradient off, as in the loss), CUDA events for the
+    # plain version (autograd)
+    img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    ref = warp_border_plain(img, cp)  # a graph the timed backward can reuse
     results = {}
-    for phase, plain, kernel, library in (
+    pix = n * height * width
+    for phase, plain, kernel, library, nbytes, flop in (
             ("forward",
              lambda: warp_border_plain(img, coords),
              lambda: warp_border(img, coords),
-             library_fwd),
+             lambda: F.grid_sample(img_nchw, coords, mode="bilinear",
+                                   padding_mode="border", align_corners=True),
+             4 * pix * (2 + 3 + 3), 30 * pix),
             ("backward",
-             lambda: torch.autograd.grad(ref_out, cp, g, retain_graph=True),
+             lambda: torch.autograd.grad(ref, cp, g, retain_graph=True),
              lambda: coords_grad(img, coords, g),
-             lambda: torch.autograd.grad(lib_out, cl, g_nchw, retain_graph=True))):
-        pl, kk = _time_pair(plain, kernel, 20)
-        lib, _ = _time_pair(library, kernel, 20)
-        nbytes = (4 * n * height * width * (2 + 3 + 3) if phase == "forward"
-                  else 4 * n * height * width * (2 + 3 + 3 + 2))
-        flop = n * height * width * (30 if phase == "forward" else 45)
+             lambda: torch.ops.aten.grid_sampler_2d_backward(
+                 g_nchw, img_nchw, coords, 0, 1, True, [False, True]),
+             4 * pix * (2 + 3 + 3 + 2), 45 * pix)):
+        us, lib = _device_us(kernel), _device_us(library)
+        pl, ev = _time_pair(plain, kernel, 20)
         bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
-        print(f"{tag} {phase}: {kk:.4f} ms/call ({nbytes / kk / 1e9:.3f} TB/s of "
-              f"{nbytes / 1e6:.1f} MB), plain (torch gathers) {pl:.4f} ms, "
-              f"F.grid_sample {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-        results[phase] = dict(ms=kk, plain_ms=pl, library_ms=lib, bound_ms=bnd,
-                              bound_by=by)
+        print(f"{tag} {phase} launch: {us:.2f} us ({nbytes / us / 1e6:.3f} TB/s "
+              f"of {nbytes / 1e6:.1f} MB, {100 * bnd * 1e3 / us:.1f} % of the "
+              f"bound), F.grid_sample {lib:.2f} us (x{lib / us:.2f}), CUDA "
+              f"events {ev * 1e3:.2f} us/call; plain (torch gathers, CUDA "
+              f"events) {pl * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
+        results[phase] = dict(ms=us / 1e3, plain_ms=pl, library_ms=lib / 1e3,
+                              bound_ms=bnd, bound_by=by)
     results["forward"]["max_abs_err"] = fwd_err
     results["backward"]["max_abs_err"] = bwd_err
     return results
+
+
+def sweep_warp(dev, rng):
+    """`--kernel D --sweep`: the forward's device time per launch under
+    each launch tile (and the one-pixel-a-thread form), each held bit for
+    bit to the shipped tile's output, beside a plain copy of the output's
+    bytes, at one branch's warp, [24, 192, 640, 3]."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.warp import FWD_TILE, _launch_fwd
+
+    img, coords = _warp_inputs(dev, rng, 2 * TRAIN_BATCH, SHIPPED_B.height,
+                               SHIPPED_B.width)
+    out = _launch_fwd(img, coords)
+    copy = _device_us(out.clone)
+    tiles = [FWD_TILE, (0, 256, 1)] + [
+        (px, tx, ty) for px in (1, 2, 4)
+        for tx, ty in ((32, 8), (64, 4), (128, 2), (256, 1), (32, 4), (64, 2))]
+    times = []
+    for tile in tiles:
+        if not torch.equal(_launch_fwd(img, coords, tile), out):
+            raise AssertionError(f"kernel D forward under {tile} differs from "
+                                 f"{FWD_TILE}")
+        times.append(_device_us(lambda tile=tile: _launch_fwd(img, coords, tile)))
+    best = min(range(len(tiles)), key=times.__getitem__)
+    print(f"kernel D sweep forward: tile {FWD_TILE} {times[0]:.2f} us, best "
+          f"{tiles[best]} {times[best]:.2f} us, copy of the output (out.clone) "
+          f"{copy:.2f} us; every tile bit-identical; all (px, tx, ty; px 0 "
+          f"one pixel a thread): "
+          + " ".join(f"{t}:{x:.2f}" for t, x in zip(tiles[1:], times[1:])))
+    return dict(tile_us=times[0], copy_us=copy, best=list(tiles[best]),
+                best_us=times[best], pixel_form_us=times[1])
 
 
 def _train_lk_calls(opt):
@@ -1651,9 +1789,9 @@ def main():
                          "the port's smoke run needs a CUDA card")
     args = sys.argv[1:]
     only = args[args.index("--kernel") + 1] if "--kernel" in args[:-1] else None
-    if "--kernel" in args and only not in ("A", "B"):
-        raise SystemExit("chip_smoke: --kernel takes A or B (that kernel's "
-                         "checks alone)")
+    if "--kernel" in args and only not in ("A", "B", "C", "D"):
+        raise SystemExit("chip_smoke: --kernel takes A, B, C or D (that "
+                         "kernel's checks alone)")
     import numpy as np
 
     from ppeadepth_tpu_torch.kernels import build
@@ -1699,6 +1837,21 @@ def main():
         b = check_ffn_fused(dev, rng)
         profile_ffn_launches(dev, rng)
         print(json.dumps({"kernel B only": b}))
+        return
+    if only == "C":
+        _clocks("before the checks")
+        res = {"check": check_plane_sweep(dev, rng),
+               "launches": time_plane_sweep(dev, rng, "--sweep" in args)}
+        _clocks("after the times")
+        print(json.dumps({"kernel C only": res}))
+        return
+    if only == "D":
+        _clocks("before the checks")
+        res = {"check": check_warp(dev, rng)}
+        if "--sweep" in args:
+            res["sweep"] = sweep_warp(dev, rng)
+        _clocks("after the times")
+        print(json.dumps({"kernel D only": res}))
         return
     a = check_lk_dwconv(dev, rng)
     b = check_ffn_fused(dev, rng)

@@ -18,12 +18,14 @@
 // Output [B, H, W, D] f32: D innermost, the layout the student's channel
 // concat wants. C a multiple of 8, at most 256.
 //
-// Rounding: the coordinate chain is written with __fmul_rn / __fadd_rn /
-// __fdiv_rn, so no multiply-add is contracted and the division is IEEE;
-// the order is the one of the plain version (ops/cost_volume.py
-// `project`, `sample_bilinear_zeros`). The edge mask compares the sampled
-// coordinate with 2 and W-2, so any extra rounding would move which
-// samples fall inside.
+// Rounding: the coordinate chain (projection, division, the edge-mask
+// compare) is written with __fmul_rn / __fadd_rn / __fdiv_rn in the order
+// of the plain version (ops/cost_volume.py `project`,
+// `sample_bilinear_zeros`): the edge mask compares the sampled coordinate
+// with 2 and W-2, so any other rounding would move which samples fall
+// inside. The value path (bilinear weights, the four-corner sum, the
+// difference) may contract to FMA; the mean divides by C in IEEE, or
+// multiplies by 1/C where C is a power of two (the same result).
 //
 // Masks: where the edge mask holds, x lies in [2, W-2] and y in [2, H-2],
 // so all four bilinear corners lie inside the image and the per-corner
@@ -34,21 +36,31 @@
 //
 // What bounds it on Hopper: per observed (item, bin, pixel) sample, ~12 f32
 // operations per channel against 4 bilinear corner reads of C values that
-// neighbouring pixels share through L1. Counted once, the inputs are read
-// once (2 x 15.7 MB in bf16 at B=8, 48x160x128) and the output written
-// once (23.6 MB), so CUDA-core arithmetic and not device memory bounds
-// the work (PERF.md gives the numbers).
+// neighbouring pixels and bins share through L1. Counted once, the inputs
+// are read once (2 x 15.7 MB in bf16 at B=8, 48x160x128) and the output
+// written once (23.6 MB), so CUDA-core arithmetic and not device memory
+// bounds the work. The corner reads are still ~1 KB a sample (5.4 GB of
+// L1 requests a call at B=8), so the samples a block has in flight share
+// corners. On the H100 the issue rate sets the pace (every gather pointed
+// at one corner keeps ~90 % of the time): per channel and sample, four
+// FMAs, one add and, in bf16, four unpacks of a corner value to f32.
 //
-// Design (first, simple version): the TPU kernel turned the gather into
-// hat-weight matmuls on the MXU because Mosaic has no dynamic gather;
-// Hopper gathers through L1/L2, so this is a direct gather.
-//   * one warp per output pixel, lanes across C in 4-channel groups (one
-//     or two 16-byte f32 / 8-byte bf16 vectors a lane); the pixel's
-//     current features stay in registers across all D bins;
-//   * bins in rounds of 32: lane j projects bin d0+j once, then each bin's
-//     (x, y) is broadcast by shuffle; the channel sum is a shuffle
-//     reduction, and lane j keeps bin d0+j's result, so a round ends in one
-//     coalesced 128-byte store of 32 bins.
+// Design: the TPU kernel turned the gather into hat-weight matmuls on the
+// MXU because Mosaic has no dynamic gather; Hopper gathers through L1/L2,
+// so this is a direct gather.
+//   * one warp per output pixel, its lanes in 32/G groups of G; a group
+//     takes one sample (bin) at a time, each lane NV 16-byte vectors of
+//     its channels (G * NV vectors cover C), so a warp has 32/G samples in
+//     flight and a log2(G)-step shuffle reduction serves all of them;
+//   * bins in rounds of 32: lane j projects bin d0+j once; step s hands
+//     bins s*32/G .. s*32/G + 32/G-1 (neighbours, so at far depths the
+//     same corners) to the groups by shuffle; lane j keeps bin d0+j's sum,
+//     so a round ends in one coalesced 128-byte store of 32 bins;
+//   * a block is a th x tw tile of neighbouring pixels, its warps walking
+//     the same rounds of bins, so the tile's shared corners are hit in L1;
+//   * the pixel's current features stay in registers across all bins.
+// `fixed` points every gather at one corner (for timing only: it splits
+// arithmetic from gather time; the output is then meaningless).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,54 +69,59 @@
 
 namespace {
 
-constexpr int WARPS = 8;       // pixels per block, one warp each
+constexpr int MAX_THREADS = 128;  // th * tw warps a block
 constexpr int MAX_C = 256;
-constexpr int GROUPS = MAX_C / 4 / 32;  // 4-channel groups per lane
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// bilinear value of one channel, all four corners inside the image
-__device__ __forceinline__ float lerp2(float t00, float t01, float b00,
-                                       float b01, float wx, float wy) {
-  const float ux = __fsub_rn(1.f, wx);
-  const float uy = __fsub_rn(1.f, wy);
-  const float top = __fadd_rn(__fmul_rn(t00, ux), __fmul_rn(t01, wx));
-  const float bot = __fadd_rn(__fmul_rn(b00, ux), __fmul_rn(b01, wx));
-  return __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, wy));
-}
-
-__device__ __forceinline__ float absdiff4(float4 t00, float4 t01, float4 b00,
-                                          float4 b01, float4 c, float wx,
-                                          float wy) {
-  float s = fabsf(__fsub_rn(lerp2(t00.x, t01.x, b00.x, b01.x, wx, wy), c.x));
-  s += fabsf(__fsub_rn(lerp2(t00.y, t01.y, b00.y, b01.y, wx, wy), c.y));
-  s += fabsf(__fsub_rn(lerp2(t00.z, t01.z, b00.z, b01.z, wx, wy), c.z));
-  s += fabsf(__fsub_rn(lerp2(t00.w, t01.w, b00.w, b01.w, wx, wy), c.w));
-  return s;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;  // channels of a 16-byte vector
+  static __device__ __forceinline__ void load(const float* p, float (&v)[N]) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[N]) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is exact: a shift, a mask
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(MAX_THREADS, 4)
 plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
                    const float* __restrict__ A, const float* __restrict__ tr,
                    const float* __restrict__ bins, float* __restrict__ out,
-                   int H, int W, int C, int D) {
+                   int H, int W, int C, int D, int tw, bool fixed) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int NG = 32 / G;  // samples a warp has in flight
   const int lane = threadIdx.x & 31;
+  const int grp = lane / G;
+  const int lig = lane % G;
+  const int warp = threadIdx.x >> 5;
+  const int ty = warp / tw;
+  const int gx = blockIdx.x * tw + (warp - ty * tw);
+  const int gy = blockIdx.y * ((blockDim.x >> 5) / tw) + ty;
+  if (gx >= W || gy >= H) return;  // whole warps only
+  const int b = blockIdx.z;
   const int HW = H * W;
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (p >= HW) return;  // whole warps only: p is warp-uniform
-  const int gy = p / W;
-  const int gx = p - gy * W;
+  const int p = gy * W + gx;
   float* o = out + ((size_t)b * HW + p) * D;
   if (!(gy >= 2 && gy < H - 2 && gx >= 2 && gx < W - 2)) {
     for (int d = lane; d < D; d += 32) o[d] = 0.f;
@@ -121,22 +138,33 @@ plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
   const float t1 = tr[b * 3 + 1];
   const float t2 = tr[b * 3 + 2];
 
-  const int groups = C / 4;
+  const int nvec = C / VEC;
   const T* cp = cur + ((size_t)b * HW + p) * C;
-  float4 cv[GROUPS];
+  float cv[NV][VEC];
 #pragma unroll
-  for (int i = 0; i < GROUPS; ++i) {
-    const int g = lane + 32 * i;
-    cv[i] = g < groups ? load4(cp + 4 * g) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = 0; j < NV; ++j) {
+    const int v = lig + G * j;
+    if (v < nvec) {
+      Vec<T>::load(cp + v * VEC, cv[j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) cv[j][i] = 0.f;
+    }
   }
-  const T* img = lk + (size_t)b * HW * C;
-  const size_t row = (size_t)W * C;
+  // the corners are addressed in bytes from the lane's first vector, so a
+  // step computes two row pointers and each load adds an immediate
+  const char* img = reinterpret_cast<const char*>(lk + (size_t)b * HW * C) + lig * 16;
+  const unsigned pix_b = C * (unsigned)sizeof(T);
+  const unsigned row_b = W * pix_b;
+  const unsigned fixed_b = ((H / 2) * W + W / 2) * pix_b;
   const float xmax = (float)(W - 2);
   const float ymax = (float)(H - 2);
+  const bool pow2 = (C & (C - 1)) == 0;
+  const float inv_c = 1.f / (float)C;
 
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int nb = min(32, D - d0);
-    float xj = 0.f, yj = 0.f;
+    float xj = 0.f, yj = 0.f;  // 0 fails the edge mask
     if (lane < nb) {
       const float depth = bins[d0 + lane];
       const float den = __fadd_rn(__fadd_rn(__fmul_rn(bz, depth), t2), 1e-7f);
@@ -144,35 +172,78 @@ plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
       yj = __fdiv_rn(__fadd_rn(__fmul_rn(by, depth), t1), den);
     }
     float mine = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < nb; ++j) {
-      const float x = __shfl_sync(FULL, xj, j);
-      const float y = __shfl_sync(FULL, yj, j);
-      float v = 0.f;
-      if (x >= 2.f && x <= xmax && y >= 2.f && y <= ymax) {  // warp-uniform
+#pragma unroll 2
+    for (int s0 = 0; s0 < nb; s0 += NG) {
+      const float x = __shfl_sync(FULL, xj, s0 + grp);
+      const float y = __shfl_sync(FULL, yj, s0 + grp);
+      float acc = 0.f;
+      if (x >= 2.f && x <= xmax && y >= 2.f && y <= ymax) {  // group-uniform
         const float x0 = floorf(x);
         const float y0 = floorf(y);
         const float wx = __fsub_rn(x, x0);
         const float wy = __fsub_rn(y, y0);
-        const T* r0 = img + (size_t)(int)y0 * row + (size_t)(int)x0 * C;
-        const T* r1 = r0 + row;
-        float s = 0.f;
+        const float w00 = (1.f - wx) * (1.f - wy);
+        const float w01 = wx * (1.f - wy);
+        const float w10 = (1.f - wx) * wy;
+        const float w11 = wx * wy;
+        const char* r0 = img + (fixed ? fixed_b : (unsigned)(int)y0 * row_b +
+                                                   (unsigned)(int)x0 * pix_b);
+        const char* r1 = r0 + row_b;
+        float acc2[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < GROUPS; ++i) {
-          const int g = lane + 32 * i;
-          if (g < groups) {
-            const int c = 4 * g;
-            s += absdiff4(load4(r0 + c), load4(r0 + C + c), load4(r1 + c),
-                          load4(r1 + C + c), cv[i], wx, wy);
+        for (int j = 0; j < NV; ++j) {
+          if (lig + G * j < nvec) {
+            float t00[VEC], t01[VEC], b00[VEC], b01[VEC];
+            Vec<T>::load(reinterpret_cast<const T*>(r0 + 16 * G * j), t00);
+            Vec<T>::load(reinterpret_cast<const T*>(r0 + pix_b + 16 * G * j), t01);
+            Vec<T>::load(reinterpret_cast<const T*>(r1 + 16 * G * j), b00);
+            Vec<T>::load(reinterpret_cast<const T*>(r1 + pix_b + 16 * G * j), b01);
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              const float d = fmaf(w11, b01[i], fmaf(w10, b00[i],
+                              fmaf(w01, t01[i], fmaf(w00, t00[i], -cv[j][i]))));
+              acc2[i & 1] += fabsf(d);
+            }
           }
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
-        v = __fdiv_rn(s, (float)C);
+        acc = acc2[0] + acc2[1];
       }
-      if (lane == j) mine = v;
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(FULL, acc, off);
+      // lane s0 + g keeps the sum of group g (bin d0 + s0 + g)
+      const float v = __shfl_sync(FULL, acc, ((lane - s0) & (NG - 1)) * G);
+      if (lane >= s0 && lane < s0 + NG) mine = v;
     }
-    if (lane < nb) o[d0 + lane] = mine;
+    if (lane < nb) o[d0 + lane] = pow2 ? mine * inv_c : __fdiv_rn(mine, (float)C);
+  }
+}
+
+template <typename T, int G>
+void launch_g(dim3 grid, int threads, cudaStream_t s, int nv, const void* cur,
+              const void* lk, const float* A, const float* t,
+              const float* bins, float* out, int H, int W, int C, int D,
+              int tw, bool fixed) {
+  const T* c = (const T*)cur;
+  const T* l = (const T*)lk;
+  switch (nv) {
+    case 1: plane_sweep_kernel<T, G, 1><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
+    case 2: plane_sweep_kernel<T, G, 2><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
+    case 3: plane_sweep_kernel<T, G, 3><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
+    default: plane_sweep_kernel<T, G, 4><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed);
+  }
+}
+
+template <typename T>
+void launch(dim3 grid, int threads, cudaStream_t s, int g, int nv,
+            const void* cur, const void* lk, const float* A, const float* t,
+            const float* bins, float* out, int H, int W, int C, int D, int tw,
+            bool fixed) {
+  if (g == 4) {
+    launch_g<T, 4>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
+  } else if (g == 8) {
+    launch_g<T, 8>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
+  } else {
+    launch_g<T, 16>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
   }
 }
 
@@ -180,25 +251,33 @@ plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
 
 // cur, lk: [B, H, W, C] (16-byte aligned), bf16 when `bf16` is nonzero,
 // else f32; A [B, 3, 3], t [B, 3], bins [D] f32; out [B, H, W, D] f32.
-// Launches on `stream` and returns cudaGetLastError().
+// The launch: groups of g lanes (4, 8 or 16) with nv 16-byte vectors a
+// lane (1-4, g * nv vectors covering C), a block of th x tw pixels (at most
+// 8 warps); `fixed` nonzero points every gather at one corner (timing
+// only). Launches on `stream` and returns cudaGetLastError().
 extern "C" int ppea_plane_sweep(const void* cur, const void* lk, const void* A,
                                 const void* t, const void* bins, void* out,
                                 int B, int H, int W, int C, int D, int bf16,
+                                int g, int nv, int th, int tw, int fixed,
                                 void* stream) {
+  const int vec = bf16 ? 8 : 4;
   if (B < 1 || H < 1 || W < 1 || D < 1 || C < 8 || C % 8 || C > MAX_C ||
-      B > 65535) {
+      B > 65535 || (long long)H * W * C * (bf16 ? 2 : 4) >= (1ll << 31) ||
+      !(g == 4 || g == 8 || g == 16) || nv < 1 || nv > 4 ||
+      g * nv * vec < C || th < 1 || tw < 1 || th * tw * 32 > MAX_THREADS) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((H * W + WARPS - 1) / WARPS, B);
+  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
+  const int threads = th * tw * 32;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    plane_sweep_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, s>>>(
-        (const __nv_bfloat16*)cur, (const __nv_bfloat16*)lk, (const float*)A,
-        (const float*)t, (const float*)bins, (float*)out, H, W, C, D);
+    launch<__nv_bfloat16>(grid, threads, s, g, nv, cur, lk, (const float*)A,
+                          (const float*)t, (const float*)bins, (float*)out, H,
+                          W, C, D, tw, fixed != 0);
   } else {
-    plane_sweep_kernel<float><<<grid, WARPS * 32, 0, s>>>(
-        (const float*)cur, (const float*)lk, (const float*)A, (const float*)t,
-        (const float*)bins, (float*)out, H, W, C, D);
+    launch<float>(grid, threads, s, g, nv, cur, lk, (const float*)A,
+                  (const float*)t, (const float*)bins, (float*)out, H, W, C,
+                  D, tw, fixed != 0);
   }
   return (int)cudaGetLastError();
 }

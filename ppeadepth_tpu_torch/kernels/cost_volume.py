@@ -15,6 +15,8 @@ features wants.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import launch_counts
@@ -22,6 +24,28 @@ from .build import check, library
 
 MAX_C = 256
 _FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+_GROUPS = (4, 8, 16)
+TILE = (2, 2)  # pixels a block: rows, columns (one warp each)
+
+
+class SweepPlan(NamedTuple):
+    """Kernel C's launch: groups of `g` lanes, `nv` 16-byte vectors of
+    channels a lane, blocks of th x tw pixels."""
+
+    g: int
+    nv: int
+    th: int
+    tw: int
+
+
+def sweep_plan(C, dtype):
+    """The launch for C channels of `dtype`: the (g, nv) whose g * nv
+    vectors cover C with the fewest idle lanes, then nv nearest 2 (16
+    channels a lane in bf16, 8 in f32), then the fewest lanes."""
+    nvec = C * (2 if dtype == torch.bfloat16 else 4) // 16
+    g, nv = min(((g, -(-nvec // g)) for g in _GROUPS if -(-nvec // g) <= 4),
+                key=lambda p: (p[0] * p[1] - nvec, abs(p[1] - 2), p[0]))
+    return SweepPlan(g, nv, *TILE)
 
 
 def plane_sweep_plain(cur, lk, A, t, bins):
@@ -76,11 +100,19 @@ def plane_sweep(cur, lk, A, t, bins):
                          f"<= {MAX_C}; got C={C}")
     if cur.data_ptr() % 16 or lk.data_ptr() % 16:
         raise ValueError("plane_sweep: cur and lk must be 16-byte aligned")
+    return _launch(cur, lk, A, t, bins, sweep_plan(C, cur.dtype))
+
+
+def _launch(cur, lk, A, t, bins, plan, fixed=False):
+    """Kernel C under `plan` on validated CUDA tensors; `fixed` points
+    every gather at one corner (a timing diagnostic, wrong output)."""
+    B, C, H, W = cur.shape
+    D = bins.shape[0]
     out = torch.empty((B, H, W, D), dtype=torch.float32, device=cur.device)
     err = library().ppea_plane_sweep(
         cur.data_ptr(), lk.data_ptr(), A.data_ptr(), t.data_ptr(),
         bins.data_ptr(), out.data_ptr(), B, H, W, C, D,
-        int(cur.dtype == torch.bfloat16),
+        int(cur.dtype == torch.bfloat16), *plan, int(fixed),
         torch.cuda.current_stream(cur.device).cuda_stream)
     check(err, "ppea_plane_sweep")
     launch_counts["plane_sweep"] += 1
