@@ -16,10 +16,10 @@
     python3 chip_smoke.py --kernel D   # device time per launch at every path
                                        # shape beside the plain version (D:
                                        # and F.grid_sample) and the bound; no
-                                       # "ok" line; --sweep: other launch
-                                       # plans and a diagnostic each (C: every
-                                       # gather at one corner; D: a copy of
-                                       # the output)
+                                       # "ok" line; --sweep: a diagnostic (C:
+                                       # every (g, nv) plan and every gather
+                                       # at one corner; D: a copy of the
+                                       # output)
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
@@ -592,8 +592,8 @@ def _sweep_bound(B, C, H, W, D, samples, itemsize):
 def check_plane_sweep(dev, rng):
     """Kernel C against its plain version at the student's main-path shape
     (B=8, 48x160, C=128, 96 log bins 0.1-10, 1/4-scale KITTI intrinsics, a
-    non-degenerate pose), with f32 and with bf16 features; device time per
-    launch (`_device_us`) of each, the bf16 one (the main path's) kept."""
+    non-degenerate pose), with f32 and with bf16 features (the main path's
+    dtype, timed by CUDA events as the other kernels of the full run)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
@@ -611,17 +611,14 @@ def check_plane_sweep(dev, rng):
         ref = plane_sweep_plain(cur, lk, A, t, bins)
         tag = f"kernel C  [{BATCH},{H},{W},{C}] D={D} {str(dtype)[6:]}"
         worst = max(worst, _hold_sweep(tag, got, ref, near, samples))
-        us = _device_us(lambda: plane_sweep(cur, lk, A, t, bins))
-        pl, ev = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
+        pl, kk = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
                             lambda: plane_sweep(cur, lk, A, t, bins), 5)
         bnd, by, flop, nbytes = _sweep_bound(BATCH, C, H, W, D, samples,
                                              cur.element_size())
-        print(f"{tag} launch: {us:.2f} us ({flop / us / 1e6:.2f} TFLOP/s of "
-              f"{flop / 1e9:.2f} GFLOP, {100 * bnd * 1e3 / us:.1f} % of the "
-              f"bound), CUDA events {ev:.4f} ms/call; plain (torch gather, "
-              f"CUDA events) {pl:.4f} ms, bound {bnd * 1e3:.2f} us ({by}: "
-              f"{nbytes / 1e6:.1f} MB)")
-        out = dict(ms=us / 1e3, plain_ms=pl, bound_ms=bnd, bound_by=by)
+        print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.2f} TFLOP/s of "
+              f"{flop / 1e9:.2f} GFLOP), plain (torch gather) {pl:.4f} ms/call, "
+              f"bound {bnd:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+        out = dict(ms=kk, plain_ms=pl, bound_ms=bnd, bound_by=by)
     return dict(max_abs_err=worst, library_ms=None, **out)
 
 
@@ -640,9 +637,8 @@ def time_plane_sweep(dev, rng, sweep):
     """`--kernel C`: at every shape of `_sweep_shapes`, kernel C held to its
     plain version, then its device time per launch (`_device_us`) beside
     the plain version's (CUDA events) and the bound. With `sweep`, also
-    every (g, nv) and block tile, and the chosen plan with every gather
-    pointed at one corner (arithmetic and shuffles without the gather's
-    cost)."""
+    every (g, nv), and the chosen plan with every gather pointed at one
+    corner (arithmetic and shuffles without the gather's cost)."""
     from ppeadepth_tpu_torch.kernels.cost_volume import (
         SweepPlan, _launch, plane_sweep, plane_sweep_plain, sweep_plan)
 
@@ -669,11 +665,9 @@ def time_plane_sweep(dev, rng, sweep):
         if not sweep:
             continue
         fixed = _device_us(lambda: _launch(cur, lk, A, t, bins, plan, fixed=True))
-        plans = [SweepPlan(g, nv, th, tw)
-                 for g in (4, 8, 16) for nv in (1, 2, 3, 4)
+        plans = [SweepPlan(g, nv) for g in (4, 8, 16) for nv in (1, 2, 3, 4)
                  if g * nv * 16 >= C * cur.element_size()
-                 and g * (nv - 1) * 16 < C * cur.element_size()
-                 for th, tw in ((1, 4), (2, 2), (4, 1), (1, 2), (1, 1))]
+                 and g * (nv - 1) * 16 < C * cur.element_size()]
         times = []
         for p in plans:
             got = _launch(cur, lk, A, t, bins, p)
@@ -683,7 +677,7 @@ def time_plane_sweep(dev, rng, sweep):
         print(f"kernel C sweep {tag[10:]}: plan {tuple(plan)} {us:.2f} us, "
               f"every gather at one corner {fixed:.2f} us (gathers "
               f"{100 * (1 - fixed / us):.1f} % of the time), best "
-              f"{tuple(plans[best])} {times[best]:.2f} us; all (g, nv, th, tw): "
+              f"{tuple(plans[best])} {times[best]:.2f} us; all (g, nv): "
               + " ".join(f"{tuple(p)}:{x:.2f}" for p, x in zip(plans, times)))
         rows[tag].update(fixed_corner_us=fixed, best=list(plans[best]),
                          best_us=times[best])
@@ -746,72 +740,103 @@ def check_warp(dev, rng):
     if not (fwd_err <= D_FWD_TOL and bwd_err <= D_BWD_REL_TOL * bwd_peak):
         raise AssertionError(f"kernel D disagrees: {fwd_err}, {bwd_err}")
 
-    # device time per launch (CUDA graph) of the kernel and of the library
-    # call (`F.grid_sample`; its backward `aten.grid_sampler_2d_backward`
-    # with the image gradient off, as in the loss), CUDA events for the
-    # plain version (autograd)
-    img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    ref = warp_border_plain(img, cp)  # a graph the timed backward can reuse
+    # plain and library timings: the image takes no gradient, as in the loss
+    cl = coords.clone().requires_grad_(True)
+    img_nchw = img.permute(0, 3, 1, 2)
+
+    def library_fwd():
+        return F.grid_sample(img_nchw, cl, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_out = library_fwd()
+    ref_out = warp_border_plain(img, cp)
+    g_nchw = g.permute(0, 3, 1, 2)
     results = {}
-    pix = n * height * width
-    for phase, plain, kernel, library, nbytes, flop in (
+    for phase, plain, kernel, library in (
             ("forward",
              lambda: warp_border_plain(img, coords),
              lambda: warp_border(img, coords),
-             lambda: F.grid_sample(img_nchw, coords, mode="bilinear",
-                                   padding_mode="border", align_corners=True),
-             4 * pix * (2 + 3 + 3), 30 * pix),
+             library_fwd),
             ("backward",
-             lambda: torch.autograd.grad(ref, cp, g, retain_graph=True),
+             lambda: torch.autograd.grad(ref_out, cp, g, retain_graph=True),
              lambda: coords_grad(img, coords, g),
-             lambda: torch.ops.aten.grid_sampler_2d_backward(
-                 g_nchw, img_nchw, coords, 0, 1, True, [False, True]),
-             4 * pix * (2 + 3 + 3 + 2), 45 * pix)):
-        us, lib = _device_us(kernel), _device_us(library)
-        pl, ev = _time_pair(plain, kernel, 20)
+             lambda: torch.autograd.grad(lib_out, cl, g_nchw, retain_graph=True))):
+        pl, kk = _time_pair(plain, kernel, 20)
+        lib, _ = _time_pair(library, kernel, 20)
+        nbytes, flop = _warp_work(n, height, width, phase)
         bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
-        print(f"{tag} {phase} launch: {us:.2f} us ({nbytes / us / 1e6:.3f} TB/s "
-              f"of {nbytes / 1e6:.1f} MB, {100 * bnd * 1e3 / us:.1f} % of the "
-              f"bound), F.grid_sample {lib:.2f} us (x{lib / us:.2f}), CUDA "
-              f"events {ev * 1e3:.2f} us/call; plain (torch gathers, CUDA "
-              f"events) {pl * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by})")
-        results[phase] = dict(ms=us / 1e3, plain_ms=pl, library_ms=lib / 1e3,
-                              bound_ms=bnd, bound_by=by)
+        print(f"{tag} {phase}: {kk:.4f} ms/call ({nbytes / kk / 1e9:.3f} TB/s of "
+              f"{nbytes / 1e6:.1f} MB), plain (torch gathers) {pl:.4f} ms, "
+              f"F.grid_sample {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        results[phase] = dict(ms=kk, plain_ms=pl, library_ms=lib, bound_ms=bnd,
+                              bound_by=by)
     results["forward"]["max_abs_err"] = fwd_err
     results["backward"]["max_abs_err"] = bwd_err
     return results
 
 
-def sweep_warp(dev, rng):
-    """`--kernel D --sweep`: the forward's device time per launch under
-    each launch tile (and the one-pixel-a-thread form), each held bit for
-    bit to the shipped tile's output, beside a plain copy of the output's
-    bytes, at one branch's warp, [24, 192, 640, 3]."""
+def _warp_work(n, height, width, phase):
+    """(bytes, f32 operations) of one kernel D call on n images: the
+    forward reads coordinates and image and writes the output, ~30
+    operations a pixel; the backward also reads the output gradient and
+    writes the coordinate gradient, ~45 a pixel."""
+    pix = n * height * width
+    if phase == "forward":
+        return 4 * pix * (2 + 3 + 3), 30 * pix
+    return 4 * pix * (2 + 3 + 3 + 2), 45 * pix
+
+
+def time_warp(dev, rng, sweep):
+    """`--kernel D`: at one branch's warp, [24, 192, 640, 3], the device
+    time per launch (`_device_us`) of kernel D's forward and backward
+    beside the library call's (`F.grid_sample`; its backward
+    `aten.grid_sampler_2d_backward` with the image gradient off, as in the
+    loss), the plain version's (CUDA events, autograd) and the bound. With
+    `sweep`, also a plain copy of the output's bytes (`out.clone`)."""
     import torch
+    import torch.nn.functional as F
 
-    from ppeadepth_tpu_torch.kernels.warp import FWD_TILE, _launch_fwd
+    from ppeadepth_tpu_torch.kernels.warp import (
+        coords_grad, warp_border, warp_border_plain)
 
-    img, coords = _warp_inputs(dev, rng, 2 * TRAIN_BATCH, SHIPPED_B.height,
-                               SHIPPED_B.width)
-    out = _launch_fwd(img, coords)
-    copy = _device_us(out.clone)
-    tiles = [FWD_TILE, (0, 256, 1)] + [
-        (px, tx, ty) for px in (1, 2, 4)
-        for tx, ty in ((32, 8), (64, 4), (128, 2), (256, 1), (32, 4), (64, 2))]
-    times = []
-    for tile in tiles:
-        if not torch.equal(_launch_fwd(img, coords, tile), out):
-            raise AssertionError(f"kernel D forward under {tile} differs from "
-                                 f"{FWD_TILE}")
-        times.append(_device_us(lambda tile=tile: _launch_fwd(img, coords, tile)))
-    best = min(range(len(tiles)), key=times.__getitem__)
-    print(f"kernel D sweep forward: tile {FWD_TILE} {times[0]:.2f} us, best "
-          f"{tiles[best]} {times[best]:.2f} us, copy of the output (out.clone) "
-          f"{copy:.2f} us; every tile bit-identical; all (px, tx, ty; px 0 "
-          f"one pixel a thread): "
-          + " ".join(f"{t}:{x:.2f}" for t, x in zip(tiles[1:], times[1:])))
-    return dict(tile_us=times[0], copy_us=copy, best=list(tiles[best]),
-                best_us=times[best], pixel_form_us=times[1])
+    n, height, width = 2 * TRAIN_BATCH, SHIPPED_B.height, SHIPPED_B.width
+    img, coords = _warp_inputs(dev, rng, n, height, width)
+    g = torch.from_numpy(rng.randn(n, height, width, 3).astype("float32")).to(dev)
+    img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    cp = coords.clone().requires_grad_(True)
+    ref = warp_border_plain(img, cp)  # a graph the timed backward can reuse
+    tag = f"kernel D  [{n},{height},{width},3]"
+    rows = {}
+    for phase, plain, kernel, library in (
+            ("forward",
+             lambda: warp_border_plain(img, coords),
+             lambda: warp_border(img, coords),
+             lambda: F.grid_sample(img_nchw, coords, mode="bilinear",
+                                   padding_mode="border", align_corners=True)),
+            ("backward",
+             lambda: torch.autograd.grad(ref, cp, g, retain_graph=True),
+             lambda: coords_grad(img, coords, g),
+             lambda: torch.ops.aten.grid_sampler_2d_backward(
+                 g_nchw, img_nchw, coords, 0, 1, True, [False, True]))):
+        us, lib = _device_us(kernel), _device_us(library)
+        (pl,) = _time_turns([plain], 20)
+        nbytes, flop = _warp_work(n, height, width, phase)
+        bnd, by = _bound_ms(nbytes, flop, F32_FLOP_PER_S)
+        print(f"{tag} {phase} launch: {us:.2f} us ({nbytes / us / 1e6:.3f} TB/s "
+              f"of {nbytes / 1e6:.1f} MB, {100 * bnd * 1e3 / us:.1f} % of the "
+              f"bound), library {lib:.2f} us (x{lib / us:.2f}); plain (torch "
+              f"gathers, CUDA events) {pl * 1e3:.2f} us, bound "
+              f"{bnd * 1e3:.2f} us ({by})")
+        rows[phase] = dict(us=us, library_us=lib, plain_us=pl * 1e3,
+                           bound_us=bnd * 1e3, bound_by=by)
+    if sweep:
+        out = warp_border(img, coords)
+        copy = _device_us(out.clone)
+        print(f"kernel D sweep: a copy of the forward's output (out.clone) "
+              f"{copy:.2f} us, the forward {rows['forward']['us']:.2f} us "
+              f"(x{rows['forward']['us'] / copy:.2f})")
+        rows["copy_us"] = copy
+    return rows
 
 
 def _train_lk_calls(opt):
@@ -1847,9 +1872,8 @@ def main():
         return
     if only == "D":
         _clocks("before the checks")
-        res = {"check": check_warp(dev, rng)}
-        if "--sweep" in args:
-            res["sweep"] = sweep_warp(dev, rng)
+        res = {"check": check_warp(dev, rng),
+               "launches": time_warp(dev, rng, "--sweep" in args)}
         _clocks("after the times")
         print(json.dumps({"kernel D only": res}))
         return

@@ -42,7 +42,7 @@
 // bounds the work. The corner reads are still ~1 KB a sample (5.4 GB of
 // L1 requests a call at B=8), so the samples a block has in flight share
 // corners. On the H100 the issue rate sets the pace (every gather pointed
-// at one corner keeps ~90 % of the time): per channel and sample, four
+// at one corner keeps 81-90 % of the time): per channel and sample, four
 // FMAs, one add and, in bf16, four unpacks of a corner value to f32.
 //
 // Design: the TPU kernel turned the gather into hat-weight matmuls on the
@@ -56,11 +56,13 @@
 //     bins s*32/G .. s*32/G + 32/G-1 (neighbours, so at far depths the
 //     same corners) to the groups by shuffle; lane j keeps bin d0+j's sum,
 //     so a round ends in one coalesced 128-byte store of 32 bins;
-//   * a block is a th x tw tile of neighbouring pixels, its warps walking
-//     the same rounds of bins, so the tile's shared corners are hit in L1;
+//   * a block is a 2 x 2 tile of neighbouring pixels, its warps walking
+//     the same rounds of bins, so the tile's shared corners are hit in L1
+//     (4-warp blocks beat 8-warp ones on the H100);
 //   * the pixel's current features stay in registers across all bins.
-// `fixed` points every gather at one corner (for timing only: it splits
-// arithmetic from gather time; the output is then meaningless).
+// `ppea_plane_sweep_fixed` launches instances that point every gather at
+// one corner: a timing diagnostic that splits arithmetic from gather time
+// (its output is meaningless); the shipped instances have no such branch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +71,9 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 128;  // th * tw warps a block
+constexpr int TH = 2;  // pixels a block: rows, and columns (a warp each)
+constexpr int TW = 2;
+constexpr int THREADS = TH * TW * 32;
 constexpr int MAX_C = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -103,21 +107,20 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, int G, int NV>
-__global__ void __launch_bounds__(MAX_THREADS, 4)
+template <typename T, int G, int NV, bool FIXED>
+__global__ void __launch_bounds__(THREADS, 4)
 plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
                    const float* __restrict__ A, const float* __restrict__ tr,
                    const float* __restrict__ bins, float* __restrict__ out,
-                   int H, int W, int C, int D, int tw, bool fixed) {
+                   int H, int W, int C, int D) {
   constexpr int VEC = Vec<T>::N;
   constexpr int NG = 32 / G;  // samples a warp has in flight
   const int lane = threadIdx.x & 31;
   const int grp = lane / G;
   const int lig = lane % G;
   const int warp = threadIdx.x >> 5;
-  const int ty = warp / tw;
-  const int gx = blockIdx.x * tw + (warp - ty * tw);
-  const int gy = blockIdx.y * ((blockDim.x >> 5) / tw) + ty;
+  const int gx = blockIdx.x * TW + warp % TW;
+  const int gy = blockIdx.y * TH + warp / TW;
   if (gx >= W || gy >= H) return;  // whole warps only
   const int b = blockIdx.z;
   const int HW = H * W;
@@ -186,7 +189,7 @@ plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
         const float w01 = wx * (1.f - wy);
         const float w10 = (1.f - wx) * wy;
         const float w11 = wx * wy;
-        const char* r0 = img + (fixed ? fixed_b : (unsigned)(int)y0 * row_b +
+        const char* r0 = img + (FIXED ? fixed_b : (unsigned)(int)y0 * row_b +
                                                    (unsigned)(int)x0 * pix_b);
         const char* r1 = r0 + row_b;
         float acc2[2] = {0.f, 0.f};
@@ -218,33 +221,56 @@ plane_sweep_kernel(const T* __restrict__ cur, const T* __restrict__ lk,
   }
 }
 
-template <typename T, int G>
-void launch_g(dim3 grid, int threads, cudaStream_t s, int nv, const void* cur,
+template <typename T, int G, bool FIXED>
+void launch_g(dim3 grid, cudaStream_t s, int nv, const void* cur,
               const void* lk, const float* A, const float* t,
-              const float* bins, float* out, int H, int W, int C, int D,
-              int tw, bool fixed) {
+              const float* bins, float* out, int H, int W, int C, int D) {
   const T* c = (const T*)cur;
   const T* l = (const T*)lk;
   switch (nv) {
-    case 1: plane_sweep_kernel<T, G, 1><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
-    case 2: plane_sweep_kernel<T, G, 2><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
-    case 3: plane_sweep_kernel<T, G, 3><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed); break;
-    default: plane_sweep_kernel<T, G, 4><<<grid, threads, 0, s>>>(c, l, A, t, bins, out, H, W, C, D, tw, fixed);
+    case 1: plane_sweep_kernel<T, G, 1, FIXED><<<grid, THREADS, 0, s>>>(c, l, A, t, bins, out, H, W, C, D); break;
+    case 2: plane_sweep_kernel<T, G, 2, FIXED><<<grid, THREADS, 0, s>>>(c, l, A, t, bins, out, H, W, C, D); break;
+    case 3: plane_sweep_kernel<T, G, 3, FIXED><<<grid, THREADS, 0, s>>>(c, l, A, t, bins, out, H, W, C, D); break;
+    default: plane_sweep_kernel<T, G, 4, FIXED><<<grid, THREADS, 0, s>>>(c, l, A, t, bins, out, H, W, C, D);
   }
 }
 
-template <typename T>
-void launch(dim3 grid, int threads, cudaStream_t s, int g, int nv,
-            const void* cur, const void* lk, const float* A, const float* t,
-            const float* bins, float* out, int H, int W, int C, int D, int tw,
-            bool fixed) {
+template <typename T, bool FIXED>
+void launch(dim3 grid, cudaStream_t s, int g, int nv, const void* cur,
+            const void* lk, const float* A, const float* t, const float* bins,
+            float* out, int H, int W, int C, int D) {
   if (g == 4) {
-    launch_g<T, 4>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
+    launch_g<T, 4, FIXED>(grid, s, nv, cur, lk, A, t, bins, out, H, W, C, D);
   } else if (g == 8) {
-    launch_g<T, 8>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
+    launch_g<T, 8, FIXED>(grid, s, nv, cur, lk, A, t, bins, out, H, W, C, D);
   } else {
-    launch_g<T, 16>(grid, threads, s, nv, cur, lk, A, t, bins, out, H, W, C, D, tw, fixed);
+    launch_g<T, 16, FIXED>(grid, s, nv, cur, lk, A, t, bins, out, H, W, C, D);
   }
+}
+
+template <bool FIXED>
+int sweep(const void* cur, const void* lk, const void* A, const void* t,
+          const void* bins, void* out, int B, int H, int W, int C, int D,
+          int bf16, int g, int nv, void* stream) {
+  const int vec = bf16 ? 8 : 4;
+  if (B < 1 || H < 1 || W < 1 || D < 1 || C < 8 || C % 8 || C > MAX_C ||
+      B > 65535 || (long long)H * W * C * (bf16 ? 2 : 4) >= (1ll << 31) ||
+      !(g == 4 || g == 8 || g == 16) || nv < 1 || nv > 4 ||
+      g * nv * vec < C) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    launch<__nv_bfloat16, FIXED>(grid, s, g, nv, cur, lk, (const float*)A,
+                                 (const float*)t, (const float*)bins,
+                                 (float*)out, H, W, C, D);
+  } else {
+    launch<float, FIXED>(grid, s, g, nv, cur, lk, (const float*)A,
+                         (const float*)t, (const float*)bins, (float*)out, H,
+                         W, C, D);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -252,32 +278,24 @@ void launch(dim3 grid, int threads, cudaStream_t s, int g, int nv,
 // cur, lk: [B, H, W, C] (16-byte aligned), bf16 when `bf16` is nonzero,
 // else f32; A [B, 3, 3], t [B, 3], bins [D] f32; out [B, H, W, D] f32.
 // The launch: groups of g lanes (4, 8 or 16) with nv 16-byte vectors a
-// lane (1-4, g * nv vectors covering C), a block of th x tw pixels (at most
-// 8 warps); `fixed` nonzero points every gather at one corner (timing
-// only). Launches on `stream` and returns cudaGetLastError().
+// lane (1-4, g * nv vectors covering C), blocks of 2 x 2 pixels. Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int ppea_plane_sweep(const void* cur, const void* lk, const void* A,
                                 const void* t, const void* bins, void* out,
                                 int B, int H, int W, int C, int D, int bf16,
-                                int g, int nv, int th, int tw, int fixed,
-                                void* stream) {
-  const int vec = bf16 ? 8 : 4;
-  if (B < 1 || H < 1 || W < 1 || D < 1 || C < 8 || C % 8 || C > MAX_C ||
-      B > 65535 || (long long)H * W * C * (bf16 ? 2 : 4) >= (1ll << 31) ||
-      !(g == 4 || g == 8 || g == 16) || nv < 1 || nv > 4 ||
-      g * nv * vec < C || th < 1 || tw < 1 || th * tw * 32 > MAX_THREADS) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
-  const int threads = th * tw * 32;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    launch<__nv_bfloat16>(grid, threads, s, g, nv, cur, lk, (const float*)A,
-                          (const float*)t, (const float*)bins, (float*)out, H,
-                          W, C, D, tw, fixed != 0);
-  } else {
-    launch<float>(grid, threads, s, g, nv, cur, lk, (const float*)A,
-                  (const float*)t, (const float*)bins, (float*)out, H, W, C,
-                  D, tw, fixed != 0);
-  }
-  return (int)cudaGetLastError();
+                                int g, int nv, void* stream) {
+  return sweep<false>(cur, lk, A, t, bins, out, B, H, W, C, D, bf16, g, nv,
+                      stream);
+}
+
+// ppea_plane_sweep with every gather pointed at one corner: a timing
+// diagnostic (arithmetic and shuffles without the gather's cost); its
+// output is meaningless.
+extern "C" int ppea_plane_sweep_fixed(const void* cur, const void* lk,
+                                      const void* A, const void* t,
+                                      const void* bins, void* out, int B,
+                                      int H, int W, int C, int D, int bf16,
+                                      int g, int nv, void* stream) {
+  return sweep<true>(cur, lk, A, t, bins, out, B, H, W, C, D, bf16, g, nv,
+                     stream);
 }

@@ -30,20 +30,15 @@
 // instead of saving them.
 //
 // The forward is a grid over (row tiles, items, row segments) of one item's
-// output rows, so no index needs a division (a flat 64-bit pixel index
-// did), with C a template parameter. A thread takes PX consecutive pixels
-// of a row: at PX = 4 the coordinates come in as two 16-byte loads and the
-// 4 * C outputs leave as C 16-byte stores (where Wo % 4 == 0 and the
-// pointers are 16-byte aligned; scalar accesses elsewhere). On the H100
-// PX = 1 measured fastest (38.7-39.2 us against 57.9-63.8 at PX = 4 for
-// [24,192,640,3]), and it is the launch `kernels/warp.FWD_TILE` picks.
+// output rows, one pixel a thread in blocks of 64 x 4, so no index needs a
+// division (a flat 64-bit pixel index did), with C a template parameter.
 // Each output is the same f32 expression in the same order as in the
-// one-pixel-a-thread form kept for comparison (`warp_fwd_pixel_kernel`),
-// so every tile gives the same bits.
+// earlier one-pixel-a-thread form with a flat index, so the bits are the
+// same. On the H100 this took [24,192,640,3] from 49.3 to 38.7-39.2 us;
+// 2 and 4 pixels a thread (16-byte coordinate loads and output stores)
+// measured 45.7-47.1 and 57.9-63.8 us (PERF.md).
 
 #include <cuda_runtime.h>
-
-#include <stdint.h>
 
 namespace {
 
@@ -81,11 +76,22 @@ __device__ __forceinline__ Corners corners(float cx, float cy, int H, int W) {
   return k;
 }
 
-// one output pixel: its C channels from the four corners of (cx, cy)
+constexpr int FWD_TX = 64;  // the forward's block: pixels along a row
+constexpr int FWD_TY = 4;   // and rows
+
+// grid (row tiles of an item, items, row segments); block (FWD_TX, FWD_TY)
 template <int C>
-__device__ __forceinline__ void sample(const float* __restrict__ base, float cx,
-                                       float cy, int H, int W, float* v) {
-  const Corners k = corners(cx, cy, H, W);
+__global__ void __launch_bounds__(FWD_TX * FWD_TY)
+warp_fwd_kernel(const float* __restrict__ img, const float2* __restrict__ coords,
+                float* __restrict__ out, int H, int W, int Ho, int Wo) {
+  const int i = blockIdx.x * FWD_TY + threadIdx.y;
+  const int j = blockIdx.z * FWD_TX + threadIdx.x;
+  if (i >= Ho || j >= Wo) return;
+  const int n = blockIdx.y;
+  const size_t p = ((size_t)n * Ho + i) * Wo + j;
+  const float2 c = __ldg(coords + p);
+  const Corners k = corners(c.x, c.y, H, W);
+  const float* base = img + (size_t)n * H * W * C;
   const float w00 = (1.f - k.wx) * (1.f - k.wy);
   const float w01 = k.wx * (1.f - k.wy);
   const float w10 = (1.f - k.wx) * k.wy;
@@ -96,75 +102,6 @@ __device__ __forceinline__ void sample(const float* __restrict__ base, float cx,
     const float v01 = __ldg(base + k.i01 * C + ch);
     const float v10 = __ldg(base + k.i10 * C + ch);
     const float v11 = __ldg(base + k.i11 * C + ch);
-    v[ch] = v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11;
-  }
-}
-
-// grid (row tiles of an item, items, row segments); block (threads along
-// the row, rows). `vec`: Wo % 4 == 0 and coords, out 16-byte aligned.
-template <int C, int PX>
-__global__ void __launch_bounds__(1024)
-warp_fwd_kernel(const float* __restrict__ img, const float* __restrict__ coords,
-                float* __restrict__ out, int H, int W, int Ho, int Wo,
-                bool vec) {
-  const int i = blockIdx.x * blockDim.y + threadIdx.y;
-  const int j0 = (blockIdx.z * blockDim.x + threadIdx.x) * PX;
-  if (i >= Ho || j0 >= Wo) return;
-  const int n = blockIdx.y;
-  const float* base = img + (size_t)n * H * W * C;
-  const size_t p0 = ((size_t)n * Ho + i) * Wo + j0;  // first pixel
-  const float* cp = coords + 2 * p0;
-  float* op = out + C * p0;
-  if (PX == 4 && vec && j0 + 4 <= Wo) {
-    const float4 c01 = __ldg(reinterpret_cast<const float4*>(cp));
-    const float4 c23 = __ldg(reinterpret_cast<const float4*>(cp) + 1);
-    float v[4 * C];
-    sample<C>(base, c01.x, c01.y, H, W, v);
-    sample<C>(base, c01.z, c01.w, H, W, v + C);
-    sample<C>(base, c23.x, c23.y, H, W, v + 2 * C);
-    sample<C>(base, c23.z, c23.w, H, W, v + 3 * C);
-    float4* o4 = reinterpret_cast<float4*>(op);
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      o4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-    return;
-  }
-  const int npx = min(PX, Wo - j0);
-#pragma unroll
-  for (int q = 0; q < PX; ++q) {
-    if (q < npx) {
-      const float2 c = __ldg(reinterpret_cast<const float2*>(cp) + q);
-      float v[C];
-      sample<C>(base, c.x, c.y, H, W, v);
-#pragma unroll
-      for (int ch = 0; ch < C; ++ch) op[q * C + ch] = v[ch];
-    }
-  }
-}
-
-// The one-pixel-a-thread form (flat 64-bit pixel index, run-time C): kept
-// beside the tiled kernel for comparison of times and outputs.
-__global__ void __launch_bounds__(NTHREADS)
-warp_fwd_pixel_kernel(const float* __restrict__ img,
-                      const float2* __restrict__ coords,
-                      float* __restrict__ out, long long P, int HWo, int H,
-                      int W, int C) {
-  const long long p = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (p >= P) return;
-  const int n = (int)(p / HWo);
-  const float2 c = coords[p];
-  const Corners k = corners(c.x, c.y, H, W);
-  const float* base = img + (size_t)n * H * W * C;
-  const float w00 = (1.f - k.wx) * (1.f - k.wy);
-  const float w01 = k.wx * (1.f - k.wy);
-  const float w10 = (1.f - k.wx) * k.wy;
-  const float w11 = k.wx * k.wy;
-  for (int ch = 0; ch < C; ++ch) {
-    const float v00 = __ldg(base + (size_t)k.i00 * C + ch);
-    const float v01 = __ldg(base + (size_t)k.i01 * C + ch);
-    const float v10 = __ldg(base + (size_t)k.i10 * C + ch);
-    const float v11 = __ldg(base + (size_t)k.i11 * C + ch);
     out[p * C + ch] = v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11;
   }
 }
@@ -198,58 +135,29 @@ bool bad_shape(int N, int H, int W, int C, int Ho, int Wo) {
          (long long)H * W * C >= (1ll << 31);
 }
 
-template <int C>
-void launch_fwd(const float* img, const float* coords, float* out, int N,
-                int H, int W, int Ho, int Wo, int px, int tx, int ty, bool vec,
-                cudaStream_t s) {
-  const dim3 block(tx, ty);
-  const dim3 grid((Ho + ty - 1) / ty, N,
-                  ((Wo + px - 1) / px + tx - 1) / tx);
-  if (px == 4) {
-    warp_fwd_kernel<C, 4><<<grid, block, 0, s>>>(img, coords, out, H, W, Ho,
-                                                 Wo, vec);
-  } else if (px == 2) {
-    warp_fwd_kernel<C, 2><<<grid, block, 0, s>>>(img, coords, out, H, W, Ho,
-                                                 Wo, vec);
-  } else {
-    warp_fwd_kernel<C, 1><<<grid, block, 0, s>>>(img, coords, out, H, W, Ho,
-                                                 Wo, vec);
-  }
-}
-
 }  // namespace
 
 // img: [N, H, W, C] f32 (NHWC, contiguous); coords: [N, Ho, Wo, 2] f32
-// normalised (x, y), 8-byte aligned; out: [N, Ho, Wo, C] f32. `px` pixels
-// a thread (4, 2 or 1) in blocks of tx x ty threads (tx along a row, ty
-// rows; at most 1024); px = 0 launches the one-pixel-a-thread form
-// instead. Launches on `stream` and returns cudaGetLastError().
+// normalised (x, y), 8-byte aligned; out: [N, Ho, Wo, C] f32. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int ppea_warp_border_fwd(const void* img, const void* coords,
                                     void* out, int N, int H, int W, int C,
-                                    int Ho, int Wo, int px, int tx, int ty,
-                                    void* stream) {
+                                    int Ho, int Wo, void* stream) {
   if (bad_shape(N, H, W, C, Ho, Wo) || N > 65535 ||
-      !(px == 0 || px == 1 || px == 2 || px == 4) || tx < 1 || ty < 1 ||
-      tx * ty > 1024 || ((Wo + px) / max(px, 1) + tx - 1) / tx > 65535) {
+      (Wo + FWD_TX - 1) / FWD_TX > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  const dim3 grid((Ho + FWD_TY - 1) / FWD_TY, N, (Wo + FWD_TX - 1) / FWD_TX);
+  const dim3 block(FWD_TX, FWD_TY);
   cudaStream_t s = (cudaStream_t)stream;
   const float* im = (const float*)img;
-  const float* co = (const float*)coords;
+  const float2* co = (const float2*)coords;
   float* o = (float*)out;
-  if (px == 0) {
-    const long long P = (long long)N * Ho * Wo;
-    const unsigned blocks = (unsigned)((P + NTHREADS - 1) / NTHREADS);
-    warp_fwd_pixel_kernel<<<blocks, NTHREADS, 0, s>>>(
-        im, (const float2*)coords, o, P, Ho * Wo, H, W, C);
-    return (int)cudaGetLastError();
-  }
-  const bool vec = Wo % 4 == 0 && ((uintptr_t)coords | (uintptr_t)out) % 16 == 0;
   switch (C) {
-    case 1: launch_fwd<1>(im, co, o, N, H, W, Ho, Wo, px, tx, ty, vec, s); break;
-    case 2: launch_fwd<2>(im, co, o, N, H, W, Ho, Wo, px, tx, ty, vec, s); break;
-    case 3: launch_fwd<3>(im, co, o, N, H, W, Ho, Wo, px, tx, ty, vec, s); break;
-    default: launch_fwd<4>(im, co, o, N, H, W, Ho, Wo, px, tx, ty, vec, s);
+    case 1: warp_fwd_kernel<1><<<grid, block, 0, s>>>(im, co, o, H, W, Ho, Wo); break;
+    case 2: warp_fwd_kernel<2><<<grid, block, 0, s>>>(im, co, o, H, W, Ho, Wo); break;
+    case 3: warp_fwd_kernel<3><<<grid, block, 0, s>>>(im, co, o, H, W, Ho, Wo); break;
+    default: warp_fwd_kernel<4><<<grid, block, 0, s>>>(im, co, o, H, W, Ho, Wo);
   }
   return (int)cudaGetLastError();
 }

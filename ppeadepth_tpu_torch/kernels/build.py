@@ -40,13 +40,13 @@ _SIGNATURES = {
     # tile_down, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P),
-    # cur, lk, A, t, bins, out, B, H, W, C, D, bf16, g, nv, th, tw, fixed,
-    # stream
+    # cur, lk, A, t, bins, out, B, H, W, C, D, bf16, g, nv, stream
     "ppea_plane_sweep": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _P),
-    # img, coords, out, N, H, W, C, Ho, Wo, px, tx, ty, stream
-    "ppea_warp_border_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P),
+                         _I, _P),
+    "ppea_plane_sweep_fixed": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+    # img, coords, out, N, H, W, C, Ho, Wo, stream
+    "ppea_warp_border_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # img, coords, g, dcoords, N, H, W, C, Ho, Wo, stream
     "ppea_warp_border_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -25,17 +25,14 @@ from .build import check, library
 MAX_C = 256
 _FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 _GROUPS = (4, 8, 16)
-TILE = (2, 2)  # pixels a block: rows, columns (one warp each)
 
 
 class SweepPlan(NamedTuple):
     """Kernel C's launch: groups of `g` lanes, `nv` 16-byte vectors of
-    channels a lane, blocks of th x tw pixels."""
+    channels a lane (blocks of 2 x 2 pixels, fixed in the kernel)."""
 
     g: int
     nv: int
-    th: int
-    tw: int
 
 
 def sweep_plan(C, dtype):
@@ -45,7 +42,7 @@ def sweep_plan(C, dtype):
     nvec = C * (2 if dtype == torch.bfloat16 else 4) // 16
     g, nv = min(((g, -(-nvec // g)) for g in _GROUPS if -(-nvec // g) <= 4),
                 key=lambda p: (p[0] * p[1] - nvec, abs(p[1] - 2), p[0]))
-    return SweepPlan(g, nv, *TILE)
+    return SweepPlan(g, nv)
 
 
 def plane_sweep_plain(cur, lk, A, t, bins):
@@ -104,16 +101,18 @@ def plane_sweep(cur, lk, A, t, bins):
 
 
 def _launch(cur, lk, A, t, bins, plan, fixed=False):
-    """Kernel C under `plan` on validated CUDA tensors; `fixed` points
-    every gather at one corner (a timing diagnostic, wrong output)."""
+    """Kernel C under `plan` on validated CUDA tensors; `fixed` launches
+    the diagnostic instance that points every gather at one corner (for
+    timing only: its output is meaningless)."""
     B, C, H, W = cur.shape
     D = bins.shape[0]
     out = torch.empty((B, H, W, D), dtype=torch.float32, device=cur.device)
-    err = library().ppea_plane_sweep(
+    entry = "ppea_plane_sweep_fixed" if fixed else "ppea_plane_sweep"
+    err = getattr(library(), entry)(
         cur.data_ptr(), lk.data_ptr(), A.data_ptr(), t.data_ptr(),
         bins.data_ptr(), out.data_ptr(), B, H, W, C, D,
-        int(cur.dtype == torch.bfloat16), *plan, int(fixed),
+        int(cur.dtype == torch.bfloat16), *plan,
         torch.cuda.current_stream(cur.device).cuda_stream)
-    check(err, "ppea_plane_sweep")
+    check(err, entry)
     launch_counts["plane_sweep"] += 1
     return out.permute(0, 3, 1, 2)

@@ -22,9 +22,6 @@ from . import launch_counts
 from .build import check, library
 
 MAX_C = 4
-# the forward's launch: pixels a thread, threads along a row, rows a block
-# (px 0 is the one-pixel-a-thread form, kept for comparison)
-FWD_TILE = (1, 64, 4)
 
 
 def warp_border_plain(img, coords):
@@ -55,12 +52,12 @@ def _dims(img, coords):
     return N, H, W, C, coords.shape[1], coords.shape[2]
 
 
-def _launch_fwd(img, coords, tile=FWD_TILE):
+def _launch_fwd(img, coords):
     N, H, W, C, Ho, Wo = _dims(img, coords)
     out = torch.empty((N, Ho, Wo, C), dtype=img.dtype, device=img.device)
     err = library().ppea_warp_border_fwd(
         img.data_ptr(), coords.data_ptr(), out.data_ptr(), N, H, W, C, Ho, Wo,
-        *tile, torch.cuda.current_stream(img.device).cuda_stream)
+        torch.cuda.current_stream(img.device).cuda_stream)
     check(err, "ppea_warp_border_fwd")
     launch_counts["warp_fwd"] += 1
     return out

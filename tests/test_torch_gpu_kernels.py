@@ -25,8 +25,7 @@ from ppeadepth_tpu_torch.kernels.ffn_fused import (
     FoldedFFN, ffn_fused, ffn_fused_plain)
 from ppeadepth_tpu_torch.kernels.lk_conv import (
     _input_grad, depthwise_plain, lk_depthwise, lk_depthwise_train)
-from ppeadepth_tpu_torch.kernels.warp import (
-    _launch_fwd, warp_border, warp_border_plain)
+from ppeadepth_tpu_torch.kernels.warp import warp_border, warp_border_plain
 from ppeadepth_tpu_torch.kernels.ffn_fused import fold_ffn_params
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS, ConvFFN
 from ppeadepth_tpu_torch.options import Config
@@ -302,24 +301,27 @@ def test_lk_train_matches_plain(cuda, dtype, B, C, H, W, k):
         assert err <= tol * ref.abs().max().item(), err
 
 
-@pytest.mark.parametrize("N,H,W,C", [
-    pytest.param(24, 192, 640, 3, id="24-192-640"),  # one branch's warp
-    pytest.param(3, 7, 13, 3, id="3-7-13"),
-    (2, 9, 30, 1),    # Wo % 4 == 2: every row ends in a partial group
-    (2, 8, 21, 2),    # Wo % 4 == 1
-    (1, 6, 20, 4),    # 16-byte accesses, C = 4
-    (2, 5, 23, 4),    # Wo % 4 == 3
+@pytest.mark.parametrize("N,H,W,Ho,Wo,C", [
+    pytest.param(24, 192, 640, 192, 640, 3, id="24-192-640"),  # one branch's warp
+    pytest.param(3, 7, 13, 7, 13, 3, id="3-7-13"),
+    (2, 9, 30, 9, 30, 1),    # Wo % 4 == 2
+    (2, 8, 21, 8, 21, 2),    # Wo % 4 == 1
+    (1, 6, 20, 6, 20, 4),    # C = 4
+    (2, 5, 23, 5, 23, 4),    # Wo % 4 == 3
+    (2, 20, 36, 11, 38, 3),  # an output wider than the image, shorter
+    (1, 9, 12, 17, 70, 3),   # an output larger than the image, Wo > 64
+    (3, 7, 5, 6, 9, 1),
 ])
-def test_warp_border_matches_plain(cuda, N, H, W, C):
+def test_warp_border_matches_plain(cuda, N, H, W, Ho, Wo, C):
     """Kernel D forward within 1e-5 (images in [0, 1]) and its coordinate
     gradient within 1e-5 of the peak, against the plain version's autograd,
-    at one branch's training warp, ragged widths (Wo % 4 != 0) and C = 1-4,
-    with coordinates beyond the borders."""
+    at one branch's training warp, ragged widths, C = 1-4 and outputs of
+    another size than the image, with coordinates beyond the borders."""
     rng = np.random.RandomState(N)
     img = torch.from_numpy(rng.rand(N, H, W, C).astype(np.float32)).to(cuda)
-    coords = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, H, W, 2)).astype(
+    coords = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, Ho, Wo, 2)).astype(
         np.float32)).to(cuda)
-    g = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(N, Ho, Wo, C).astype(np.float32)).to(cuda)
     n0 = dict(kernels.launch_counts)
     c = coords.clone().requires_grad_(True)
     out = warp_border(img, c)
@@ -332,27 +334,6 @@ def test_warp_border_matches_plain(cuda, N, H, W, C):
     ref.backward(g)
     assert (out - ref).abs().max().item() <= 1e-5
     assert (c.grad - cp.grad).abs().max().item() <= 1e-5 * cp.grad.abs().max().item()
-
-
-@pytest.mark.parametrize("tile", [(0, 256, 1), (1, 32, 8), (2, 64, 2),
-                                  (4, 32, 4), (4, 256, 1), (4, 64, 4)])
-@pytest.mark.parametrize("N,H,W,Ho,Wo,C", [
-    (2, 20, 36, 11, 38, 3),   # a smaller image than the output, Wo % 4 == 2
-    (1, 9, 12, 17, 64, 3),    # 16-byte accesses
-    (3, 7, 5, 6, 9, 1),
-    (1, 8, 8, 5, 40, 4),
-])
-def test_warp_border_tiles_agree(cuda, tile, N, H, W, Ho, Wo, C):
-    """Every forward launch tile and the one-pixel-a-thread form give the
-    same bits, Ho x Wo differing from the image's H x W; and the shipped
-    tile's output is within 1e-5 of the plain version."""
-    rng = np.random.RandomState(Wo)
-    img = torch.from_numpy(rng.rand(N, H, W, C).astype(np.float32)).to(cuda)
-    coords = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, Ho, Wo, 2)).astype(
-        np.float32)).to(cuda)
-    out = _launch_fwd(img, coords)
-    assert torch.equal(_launch_fwd(img, coords, tile), out)
-    assert (out - warp_border_plain(img, coords)).abs().max().item() <= 1e-5
 
 
 def _sweep_inputs(rng, B, C, H, W, D, dtype, device, zero_pose=False):
@@ -418,22 +399,21 @@ def test_plane_sweep_matches_plain(cuda, B, C, H, W, D, dtype):
     assert not (beyond & ~near).any()
 
 
-@pytest.mark.parametrize("tile", [(1, 4), (2, 2), (4, 1), (1, 2), (1, 1)])
 @pytest.mark.parametrize("dtype,C,g", [
     (torch.bfloat16, 192, 8), (torch.bfloat16, 192, 16), (torch.float32, 192, 16),
     (torch.bfloat16, 40, 4), (torch.bfloat16, 40, 8), (torch.float32, 40, 4),
     (torch.float32, 40, 8), (torch.float32, 40, 16),
 ])
-def test_plane_sweep_plans(cuda, tile, dtype, C, g):
+def test_plane_sweep_plans(cuda, dtype, C, g):
     """Every group width with the fewest 16-byte vectors a lane (1-4) that
-    cover C, and every block tile, holds kernel C's limits at a ragged
-    shape, as the shipped plan does: C=192 (24 bf16 or 48 f32 vectors)
+    cover C holds kernel C's limits at a ragged shape (H and W odd, so
+    the 2 x 2 pixel blocks overhang), as the shipped plan does: C=192 (24 bf16 or 48 f32 vectors)
     and C=40 (5 or 10 vectors: idle lanes in a group)."""
     B, H, W, D = 2, 13, 27, 40
     rng = np.random.RandomState(g + C)
     cur, lk, A, t, bins = _sweep_inputs(rng, B, C, H, W, D, dtype, cuda)
     nv = -(-C * cur.element_size() // (16 * g))
-    y = _launch(cur, lk, A, t, bins, SweepPlan(g, nv, *tile))
+    y = _launch(cur, lk, A, t, bins, SweepPlan(g, nv))
     torch.cuda.synchronize()
     ref = plane_sweep_plain(cur, lk, A, t, bins)
     beyond = (y - ref).abs() > 5e-5 * ref.abs().max()
