@@ -2,7 +2,10 @@
 
 Every adapter's last projection `D_fc2` starts at zero, so a fresh adapter
 model is exactly the plain backbone (replknet_adapter.py:482-508);
-`models.repdepth.init_weights` applies that rule.
+`models.repdepth.init_weights` applies that rule. The stage-2 decoder
+adapters (`DecoderAdapter`, `UpAdapter`) compute in float32 under any
+compute dtype, as the JAX modules carry no dtype; their callers in
+`models.depth_decoder` turn autocast off around them.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.resize import upsample2x_nearest
 from .blocks import channel_linear
 
 
@@ -45,3 +49,36 @@ class BAdapter(nn.Module):
 
     def forward(self, x):
         return channel_linear(self.D_fc2, F.gelu(self.D_fc1(x)))
+
+
+class DecoderAdapter(nn.Module):
+    """Stage-2 decoder adapter with differing in and out widths
+    (depth_decoder_v2.py:19-55): Linear(C_in -> hidden) - GELU -
+    Linear(-> C_out), hidden = int((C_in + C_out) / 2 * ratio); `D_fc2`
+    starts at zero."""
+
+    def __init__(self, channels_in: int, channels_out: int,
+                 mlp_ratio: float = 0.25):
+        super().__init__()
+        hidden = int((channels_in + channels_out) / 2 * mlp_ratio)
+        self.D_fc1 = nn.Linear(channels_in, hidden)
+        self.D_fc2 = nn.Linear(hidden, channels_out)
+
+    def forward(self, x):
+        h = F.gelu(channel_linear(self.D_fc1, x))
+        return channel_linear(self.D_fc2, h)
+
+
+class UpAdapter(nn.Module):
+    """The dec_id-10 per-level adapter (depth_decoder_v2.py:56-79):
+    Linear(C_in -> C_out), GELU, nearest 2x upsample. Its only projection,
+    `D_fc1`, starts at zero (`zero_init`, read by
+    `models.repdepth.init_weights`)."""
+
+    def __init__(self, channels_in: int, channels_out: int):
+        super().__init__()
+        self.D_fc1 = nn.Linear(channels_in, channels_out)
+        self.D_fc1.zero_init = True
+
+    def forward(self, x):
+        return upsample2x_nearest(F.gelu(channel_linear(self.D_fc1, x)))

@@ -33,6 +33,11 @@ from .resnet import ResnetEncoder
 
 # modules that always compute in float32: the JAX pose nets carry no dtype
 _F32_MODULES = ("pose_encoder", "pose")
+# decoder submodules that always compute in float32: the disparity head
+# and the stage-2 adapters
+_DECODERS = ("depth", "mono_depth")
+_DECODER_F32 = ("disp_convs", "adapter", "adapters", "deconv_adpt",
+                "deconv_adpt2")
 
 
 def cudnn_without_tf32():
@@ -66,8 +71,9 @@ class RepDepth(nn.Module):
     """opt: `options.Config` (or the JAX package's), or any object with its
     fields adapter, adpt_test, rep_size, g_blk, g_ffn, ratio, trans,
     input, mono_trans, mono_input, dc, dyn_cv, num_depth_bins and
-    depth_binning (the port imports nothing of the JAX package); training also
-    reads frame_ids, matching_ids, height, width and
+    depth_binning, and dec_id and dec_ratio where the object has them
+    (Config's defaults 1 and 0.25 otherwise; the port imports nothing of
+    the JAX package); training also reads frame_ids, matching_ids, height, width and
     no_matching_augmentation, and drop_path_rate, use_checkpoint and
     lk_backend where the object has them (Config's defaults 0.3, False and
     "lax" otherwise)."""
@@ -89,10 +95,12 @@ class RepDepth(nn.Module):
             trans_adpt=opt.trans, input_adpt=opt.input,
             num_depth_bins=opt.num_depth_bins,
             depth_binning=opt.depth_binning, **common)
-        self.depth = DepthDecoderV2(ch, dc=opt.dc)
+        dec = dict(dc=opt.dc, dec_id=getattr(opt, "dec_id", 1),
+                   dec_ratio=getattr(opt, "dec_ratio", 0.25))
+        self.depth = DepthDecoderV2(ch, **dec)
         self.mono_encoder = RepLKNet(trans_adpt=opt.mono_trans,
                                      input_adpt=opt.mono_input, **common)
-        self.mono_depth = DepthDecoderV2(ch, dc=opt.dc)
+        self.mono_depth = DepthDecoderV2(ch, **dec)
         self.pose_encoder = ResnetEncoder(18, num_input_images=2)
         self.pose = PoseDecoder(self.pose_encoder.num_ch_enc,
                                 num_frames_to_predict_for=2)
@@ -213,12 +221,17 @@ class RepDepth(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: LeCun-normal conv/linear weights (flax's
     default), zero biases, identity BN, and zero adapter `D_fc2` weights
-    (replknet_adapter.py:482-508). Draws on the CPU from `generator`."""
+    (replknet_adapter.py:482-508), zero stage-2 `deconv_adpt` ConvTransposes
+    and zero layers marked `zero_init` (the dec_id-10 adapters' `D_fc1`).
+    Draws on the CPU from `generator`."""
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseConv)):
+        if isinstance(m, nn.ConvTranspose2d):
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseConv)):
             w = m.weight
             fan_in = math.prod(w.shape[1:])
-            if name.endswith("D_fc2"):
+            if name.endswith("D_fc2") or getattr(m, "zero_init", False):
                 w.zero_()
             else:
                 w.copy_(torch.randn(w.shape, generator=generator)
@@ -232,11 +245,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> None:
     """Cast conv and linear weights to the compute dtype, as the JAX modules
     cast params at use. BatchNorm keeps f32 statistics (its output follows
-    the input dtype), the disparity heads stay f32 (depth_decoder.py:76) and
-    so do the pose nets (`_F32_MODULES`). Folded ConvFFN operands are left
-    as folded."""
+    the input dtype), the disparity heads and the stage-2 decoder adapters
+    stay f32 (depth_decoder.py:76; the JAX adapters carry no dtype) and so
+    do the pose nets (`_F32_MODULES`). Folded ConvFFN operands are left as
+    folded."""
     for name, m in model.named_modules():
+        parts = name.split(".")
         if (isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseConv))
-                and ".disp_convs." not in name
-                and name.split(".")[0] not in _F32_MODULES):
+                and parts[0] not in _F32_MODULES
+                and not (parts[0] in _DECODERS and parts[1] in _DECODER_F32)):
             m.to(dtype)

@@ -14,7 +14,6 @@ from ppeadepth_tpu_torch.models import RepDepth, init_weights
 from ppeadepth_tpu_torch.models.blocks import DropPath
 from ppeadepth_tpu_torch.models.repdepth import matching_augmentation
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS, RepLKNet
-from ppeadepth_tpu_torch.train.freeze import param_labels
 from ppeadepth_tpu_torch.train.schedule import make_optimizer, step_lr_factor
 from ppeadepth_tpu_torch.train.step import create_train_state, make_train_step
 from tests.test_train_step import make_batch
@@ -128,12 +127,11 @@ def test_bfloat16_step_keeps_f32_state():
 
 def test_step_lr_schedule_and_options():
     """StepLR per epoch as the optax schedule: factor gamma ** (epoch //
-    15); grad_accum > 1 and stage-2 freezing are not ported."""
+    15); grad_accum > 1 is not ported (stage-2 freezing is held to JAX in
+    tests/test_torch_stage2.py)."""
     f = step_lr_factor(steps_per_epoch=10)
     assert [f(s) for s in (0, 149, 150, 299, 300)] == [1, 1, 0.1, 0.1, 0.1 ** 2]
     model = RepDepth(TINY)
     optim, sched = make_optimizer(model.parameters(), LR, 100)
     with pytest.raises(NotImplementedError):
         make_train_step(model, TINY.replace(grad_accum=2), optim, sched)
-    with pytest.raises(NotImplementedError):
-        param_labels(model, TINY.replace(dc=True))

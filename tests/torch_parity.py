@@ -56,18 +56,32 @@ def perturb(tree, rng, path=()):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_repdepth(opt=TINY, seed=0):
-    """(params, batch_stats) of the whole JAX RepDepth (student, teacher and
-    pose nets) as numpy: LeCun-normal kernels, and biases, BN scales and
-    statistics, and adapter D_fc2 kernels drawn away from their zero or
-    identity init so folding and adapter bugs cannot hide. Drawn over the
-    shapes of the init (jax.eval_shape, no compile), once per process and
-    (opt, seed); the arrays are read-only, as every caller shares them."""
-    shapes = jax.eval_shape(lambda: RepDepth(opt).init(
+def jax_shapes(opt=TINY):
+    """The shapes of the whole JAX RepDepth's variables (jax.eval_shape of
+    its init, no compile), once per process and opt."""
+    return jax.eval_shape(lambda: RepDepth(opt).init(
         {"params": jax.random.PRNGKey(0), "droppath": jax.random.PRNGKey(1),
          "aug": jax.random.PRNGKey(2)},
         synthetic_batch(opt, 1), 0.1, 10.0, False))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_repdepth(opt=TINY, seed=0):
+    """(params, batch_stats) of the whole JAX RepDepth (student, teacher and
+    pose nets) as numpy, drawn by `random_tree` over `jax_shapes(opt)`, once
+    per process and (opt, seed); the arrays are read-only, as every caller
+    shares them."""
+    shapes = jax_shapes(opt)
     rng = np.random.RandomState(seed)
+    return (random_tree(shapes["params"], rng),
+            random_tree(shapes["batch_stats"], rng))
+
+
+def random_tree(shapes, rng):
+    """A flax variable tree of numpy arrays over the shapes of `shapes`:
+    LeCun-normal kernels, and biases, BN scales and statistics, and adapter
+    D_fc2 kernels drawn away from their zero or identity init so folding
+    and adapter bugs cannot hide. Read-only arrays."""
 
     def draw(path, leaf):
         name, shape = path[-1].key, leaf.shape
@@ -86,10 +100,7 @@ def jax_repdepth(opt=TINY, seed=0):
         a.setflags(write=False)
         return a
 
-    def tree(t):
-        return jax.tree_util.tree_map_with_path(draw, t)
-
-    return tree(shapes["params"]), tree(shapes["batch_stats"])
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def compile_reference(fn, *args):
