@@ -1,9 +1,13 @@
-"""KITTI data for the port (JAX counterpart: ppeadepth_tpu/data).
+"""The port's data (JAX counterpart: ppeadepth_tpu/data): KITTI and
+CityScapes datasets, the loader and the device prefetch.
 
-`DATASETS` maps `--dataset` names to dataset classes. The CityScapes and
-DDAD datasets belong to stage 2 and DDAD evaluation, which are not ported
-yet: their entries raise."""
+`DATASETS` maps `--dataset` names to dataset classes. The DDAD dataset
+belongs to DDAD evaluation, which is not ported yet: its entry raises."""
 
+from .cityscapes import (  # noqa: F401
+    CityscapesEvalDataset,
+    CityscapesPreprocessedDataset,
+)
 from .kitti import (  # noqa: F401
     KITTIDataset,
     KITTIDepthDataset,
@@ -25,9 +29,7 @@ def _not_ported(name: str, slice_name: str):
 DATASETS = {
     "kitti": KITTIRAWDataset,
     "kitti_odom": KITTIOdomDataset,
-    "cityscapes_preprocessed": _not_ported(
-        "cityscapes_preprocessed", "stage-2 (--train_cs, --dc)"),
-    "cityscapes_eval": _not_ported(
-        "cityscapes_eval", "stage-2 (--train_cs, --dc)"),
+    "cityscapes_preprocessed": CityscapesPreprocessedDataset,
+    "cityscapes_eval": CityscapesEvalDataset,
     "ddad": _not_ported("ddad", "DDAD evaluation (--ddad)"),
 }

@@ -102,6 +102,9 @@ class MonoDataset:
     def get_color(self, folder, frame_index, side, do_flip):
         raise NotImplementedError
 
+    def get_colors(self, folder, frame_index, side, do_flip):
+        raise NotImplementedError  # only for cityscapes-style datasets
+
     def check_depth(self) -> bool:
         return False
 
@@ -110,6 +113,8 @@ class MonoDataset:
 
     def load_intrinsics(self, folder, frame_index) -> np.ndarray:
         return self.K.copy()
+
+    _loads_all_colors = False  # cityscapes-style get_colors()
 
     # ------------------------------------------------------------------ #
 
@@ -123,26 +128,29 @@ class MonoDataset:
         folder, frame_index, side = self.index_to_folder_and_frame_idx(index)
 
         raw: Dict = {}
-        for i in self.frame_idxs:
-            if i == "s":
-                other_side = {"r": "l", "l": "r"}[side]
-                raw[("color", i, -1)] = self.get_color(
-                    folder, frame_index, other_side, do_flip
-                )
-            else:
-                try:
+        if self._loads_all_colors:
+            raw.update(self.get_colors(folder, frame_index, side, do_flip))
+        else:
+            for i in self.frame_idxs:
+                if i == "s":
+                    other_side = {"r": "l", "l": "r"}[side]
                     raw[("color", i, -1)] = self.get_color(
-                        folder, frame_index + i, side, do_flip
+                        folder, frame_index, other_side, do_flip
                     )
-                except FileNotFoundError:
-                    if i != 0:
-                        # missing neighbor -> dummy zeros
-                        # (mono_dataset.py:161-166)
-                        raw[("color", i, -1)] = Image.fromarray(
-                            np.zeros((100, 100, 3), np.uint8)
+                else:
+                    try:
+                        raw[("color", i, -1)] = self.get_color(
+                            folder, frame_index + i, side, do_flip
                         )
-                    else:
-                        raise
+                    except FileNotFoundError:
+                        if i != 0:
+                            # missing neighbor -> dummy zeros
+                            # (mono_dataset.py:161-166)
+                            raw[("color", i, -1)] = Image.fromarray(
+                                np.zeros((100, 100, 3), np.uint8)
+                            )
+                        else:
+                            raise
 
         inputs: Dict = {}
         for scale in range(self.num_scales):

@@ -78,12 +78,14 @@ def make_eval_step(model, opt, with_teacher: bool):
 
 
 def load_gt_depths(opt, num: Optional[int] = None, splits_dir="./splits"):
-    """GT depths per split (trainer.py:760-767): `splits_dir`/<eval_split>/
-    gt_depths.npz (CityScapes is not ported)."""
+    """GT depths per split (trainer.py:760-767): for CityScapes the first
+    `num` (all when None) of `splits_dir`/cityscapes/gt_depths/NNN_depth.npy,
+    else `splits_dir`/<eval_split>/gt_depths.npz."""
     if opt.eval_split == "cityscapes":
-        raise NotImplementedError(
-            "CityScapes evaluation is not ported yet; it comes with the "
-            "stage-2 slice")
+        d = os.path.join(splits_dir, opt.eval_split, "gt_depths")
+        n = num if num is not None else len(os.listdir(d))
+        return [np.load(os.path.join(d, str(i).zfill(3) + "_depth.npy"))
+                for i in range(n)]
     gt_path = os.path.join(splits_dir, opt.eval_split, "gt_depths.npz")
     if not os.path.exists(gt_path):
         raise FileNotFoundError(

@@ -18,8 +18,11 @@ import torch
 
 def evaluate(opt, device="cuda", splits_dir: str = "./splits"):
     """Evaluate `opt.load_weights_folder` (random weights when None) on
-    `splits_dir`/<split>/test_files.txt against <eval_split>/gt_depths.npz.
-    Returns (mean_errors [7], teacher mean_errors [7] or None)."""
+    `splits_dir`/<split>/test_files.txt against the GT depths of
+    <eval_split> (`evaluator.load_gt_depths`): KITTI images under
+    `opt.data_path`, or, for `--eval_split cityscapes`, the
+    `cityscapes_eval` layout under `opt.cs_eval_path`. Returns
+    (mean_errors [7], teacher mean_errors [7] or None)."""
     from . import data as D
     from .ckpt import io as ckpt_io
     from .eval import evaluator, metrics as M
@@ -29,9 +32,6 @@ def evaluate(opt, device="cuda", splits_dir: str = "./splits"):
 
     opt = opt.with_mode_presets()
     device = resolve_device(device)
-    if opt.eval_split == "cityscapes":
-        raise NotImplementedError("CityScapes evaluation is not ported yet; "
-                                  "it comes with the stage-2 slice")
     model = RepDepth(opt)
     init_weights(model, torch.Generator().manual_seed(0))
     min_bin, max_bin = 0.1, 10.0
@@ -42,9 +42,12 @@ def evaluate(opt, device="cuda", splits_dir: str = "./splits"):
     model.to(device).eval()
 
     files = readlines(os.path.join(splits_dir, opt.split, "test_files.txt"))
-    ds = D.DATASETS["kitti"](
-        opt.data_path, files, opt.height, opt.width, [0, -1], 4,
-        is_train=False, img_ext=".png" if opt.png else ".jpg")
+    if opt.eval_split == "cityscapes":
+        ds_cls, data_path = D.DATASETS["cityscapes_eval"], opt.cs_eval_path
+    else:
+        ds_cls, data_path = D.DATASETS["kitti"], opt.data_path
+    ds = ds_cls(data_path, files, opt.height, opt.width, [0, -1], 4,
+                is_train=False, img_ext=".png" if opt.png else ".jpg")
     loader = D.DataLoader(ds, opt.batch_size, shuffle=False,
                           num_workers=opt.num_workers, drop_last=False)
 

@@ -2,11 +2,17 @@
 Trainer, trainer.py:83-418): datasets and loaders, the model and its
 optimizer, checkpoints, and the loop of training steps with validation.
 
+Stage 2 is `--train_cs --dc --ktf --load_weights_folder <stage 1>`: the
+CityScapes preset, the decoder adapters with their freezing, and a warm
+start that takes the stage-1 weights, BN statistics and depth bins and
+starts at step 0 with a fresh Adam.
+
 Differences from the JAX Trainer: one device and no mesh; the JAX
 package's automatic `--remat_loss` guard for a 16 GB TPU has no
-counterpart. Not ported yet, and raising: `--grad_accum > 1`,
-`--fast_pipeline` (with its device-side augmentation and native loader),
-and stage 2 (`--dc`, `--train_cs`). Logging is stdout and
+counterpart; a plain resume (no `--ktf`) takes the step count from the
+checkpoint's track.json, where the JAX Trainer keeps its fresh step. Not
+ported yet, and raising: `--grad_accum > 1` and `--fast_pipeline` (with
+its device-side augmentation and native loader). Logging is stdout and
 `metrics.jsonl` under the JAX keys.
 """
 
@@ -49,9 +55,7 @@ def check_ported(opt) -> None:
     """Raise for the options whose paths are not ported yet."""
     for flag, on, slice_name in (
             ("--grad_accum > 1", opt.grad_accum > 1, "gradient accumulation"),
-            ("--fast_pipeline", opt.fast_pipeline, "fast input pipeline"),
-            ("--dc", opt.dc, "stage-2"),
-            ("--train_cs", opt.train_cs, "stage-2")):
+            ("--fast_pipeline", opt.fast_pipeline, "fast input pipeline")):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet; it comes with the {slice_name} "
@@ -60,8 +64,11 @@ def check_ported(opt) -> None:
 
 class Trainer:
     """opt: `options.Config` (or the JAX package's); splits_dir: holds
-    <split>/{train,test}_files.txt and <eval_split>/gt_depths.npz; device:
-    "cuda" unless the caller asks for the CPU."""
+    <split>/{train,test}_files.txt and the GT depths of <eval_split>
+    (`evaluator.load_gt_depths`); device: "cuda" unless the caller asks for
+    the CPU. The validation set is the training dataset's test split, or,
+    for any dataset other than KITTI, the `cityscapes_eval` layout under
+    `opt.cs_eval_path` (trainer.py:110-116)."""
 
     def __init__(self, opt, splits_dir: str = "./splits", device="cuda"):
         self.opt = opt = opt.with_mode_presets()
@@ -84,8 +91,12 @@ class Trainer:
             train_ds = ds_cls(
                 opt.data_path, readlines(fpath.format("train")), opt.height,
                 opt.width, frames_to_load, 4, is_train=True, img_ext=img_ext)
-            val_ds = ds_cls(
-                opt.data_path, readlines(fpath.format("test")), opt.height,
+            val_cls, val_path = ds_cls, opt.data_path
+            if opt.dataset != "kitti":
+                val_cls = D.DATASETS["cityscapes_eval"]
+                val_path = opt.cs_eval_path
+            val_ds = val_cls(
+                val_path, readlines(fpath.format("test")), opt.height,
                 opt.width, [0, -1], 4, is_train=False, img_ext=img_ext)
             self.train_loader = D.DataLoader(
                 train_ds, opt.batch_size, shuffle=True,
@@ -128,9 +139,11 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def load_model(self, folder: str):
-        """Resume from a checkpoint folder: weights and BN statistics,
-        Adam and its schedule (not under --ktf, trainer.py:151), the depth
-        bins and the step count."""
+        """Resume from a checkpoint folder: weights and BN statistics, the
+        depth bins, and Adam with its schedule and the step count. Under
+        --ktf (a warm start into a new run, as stage 2 from a stage-1
+        model, trainer.py:151) only the weights, BN statistics and depth
+        bins: the step stays 0 and Adam fresh, as in the JAX Trainer."""
         track = ckpt_io.load_model(folder, self.model)
         if not self.opt.ktf:
             ckpt_io.load_adam(folder, self.optimizer, self.scheduler)
@@ -139,7 +152,8 @@ class Trainer:
             track.get("min_depth_bin", 0.1), dtype=torch.float32, device=dev)
         self.state.max_depth_bin = torch.tensor(
             track.get("max_depth_bin", 10.0), dtype=torch.float32, device=dev)
-        self.state.step = int(track.get("step", 0))
+        if not self.opt.ktf:
+            self.state.step = int(track.get("step", 0))
         print(f"loaded checkpoint from {folder} "
               f"(bins {self.state.min_depth_bin.item():.3f}"
               f"/{self.state.max_depth_bin.item():.3f})")

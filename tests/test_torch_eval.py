@@ -18,7 +18,8 @@ from ppeadepth_tpu_torch.ckpt.convert import state_dict_from_jax
 from ppeadepth_tpu_torch.eval import evaluator as E
 from ppeadepth_tpu_torch.eval import metrics as M
 from ppeadepth_tpu_torch.models import RepDepth
-from tests.torch_parity import TINY, compile_reference, jax_repdepth, kitti_set
+from tests.torch_parity import (
+    TINY, cityscapes_set, compile_reference, jax_repdepth, kitti_set)
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 OPT = TINY.replace(post_process=True, eval_split="tiny", split="tiny",
@@ -128,5 +129,30 @@ def test_load_gt_depths_matches_jax(tmp_path):
     np.testing.assert_array_equal(got, ref)
     with pytest.raises(FileNotFoundError, match="export_gt_depth"):
         E.load_gt_depths(OPT.replace(eval_split="none"), splits_dir=splits)
-    with pytest.raises(NotImplementedError, match="stage-2"):
-        E.load_gt_depths(OPT.replace(eval_split="cityscapes"), splits_dir=splits)
+
+
+@pytest.mark.parametrize("median", [True, False])
+def test_cityscapes_gt_and_metrics_match_jax(tmp_path, median):
+    """CityScapes: `load_gt_depths` reads splits/cityscapes/gt_depths/
+    NNN_depth.npy (all of them, or the first `num`) as the JAX package
+    does, and `evaluate_disps` (the 75 % ego-car crop, the [256:, 192:1856]
+    window, median scaling, clamp) gives JAX's metrics bit for bit on
+    1024x2048 GT."""
+    _, _, splits = cityscapes_set(tmp_path, 0, 3)
+    opt = OPT.replace(eval_split="cityscapes")
+    for num in (None, 2):
+        got = E.load_gt_depths(opt, num, splits_dir=splits)
+        ref = J.load_gt_depths(opt, num, splits_dir=splits)
+        assert len(got) == len(ref) == (num or 3)
+        for g, r in zip(got, ref):
+            assert g.shape == (1024, 2048)
+            np.testing.assert_array_equal(g, r)
+    rng = np.random.RandomState(2)
+    disps = (rng.rand(3, 48, 128) * 0.3 + 0.01).astype(np.float32)
+    kw = dict(eval_split="cityscapes", disable_median_scaling=not median,
+              pred_depth_scale_factor=1.0 if median else 5.4)
+    got = M.evaluate_disps(disps.copy(), E.load_gt_depths(opt, None, splits), **kw)
+    ref = JM.evaluate_disps(disps.copy(), J.load_gt_depths(opt, None, splits), **kw)
+    assert np.isfinite(ref[0]).all()
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])

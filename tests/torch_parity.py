@@ -157,3 +157,65 @@ def kitti_set(root, n_items, n_test, seed=0, gt=True):
         np.savez(str(split / "gt_depths.npz"),
                  data=np.where(mask, depth, 0).astype(np.float32))
     return str(root / "kitti"), str(root / "splits")
+
+
+CS_CITY = "aachen"
+
+
+def cityscapes_set(root, n_train, n_test, seed=0, gt=True):
+    """Synthetic CityScapes sets on disk under `root` (Path), like
+    tests/test_trainer_stage2_e2e.py's: (1) ManyDepth-preprocessed
+    training triplets, one wide jpg of three 96x160 frames (-1, 0, +1) side
+    by side and a `_cam.txt` per frame, in `root`/cs; (2) the
+    `cityscapes_eval` layout in `root`/cs_eval: 128x256 `leftImg8bit/test`
+    frames, their frame -2 in `leftImg8bit_sequence/test`, and the camera
+    JSONs; (3) the split "cityscapes_preprocessed" with `n_train` training
+    and `n_test` test lines, and (gt) `n_test` random 1024x2048 GT depths
+    (1-70 m at ~30 % of the pixels) as splits/cityscapes/gt_depths/
+    NNN_depth.npy. Returns (training path, eval path, splits_dir) as
+    strings."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    train = root / "cs" / CS_CITY
+    train.mkdir(parents=True)
+    fh, fw = 96, 160
+    cam = np.array([200.0, 0.0, fw / 2, 0.0, 210.0, fh / 2, 0.0, 0.0, 1.0])
+    frames = [f"{CS_CITY}_000000_{19 + 30 * i:06d}" for i in range(
+        max(n_train, n_test))]
+    for frame in frames[:n_train]:
+        wide = (rng.rand(fh, 3 * fw, 3) * 255).astype(np.uint8)
+        Image.fromarray(wide).save(str(train / f"{frame}.jpg"))
+        np.savetxt(str(train / f"{frame}_cam.txt"), cam[None], delimiter=",")
+    ev = root / "cs_eval"
+    dirs = {k: ev / k / "test" / CS_CITY for k in
+            ("leftImg8bit", "leftImg8bit_sequence")}
+    camera = ev / "camera_trainvaltest" / "camera" / "test" / CS_CITY
+    for d in (*dirs.values(), camera):
+        d.mkdir(parents=True)
+    for frame in frames[:n_test]:
+        city, seq, num = frame.split("_")
+        prev = f"{city}_{seq}_{int(num) - 2:06d}"
+        for d, name in ((dirs["leftImg8bit"], frame),
+                        (dirs["leftImg8bit_sequence"], prev)):
+            Image.fromarray((rng.rand(128, 256, 3) * 255).astype(np.uint8)).save(
+                str(d / f"{name}_leftImg8bit.png"))
+        intr = {"fx": 2262.5, "fy": 2265.3, "u0": 1096.98, "v0": 513.137}
+        (camera / f"{frame}_camera.json").write_text(json.dumps({"intrinsic": intr}))
+    split = root / "splits" / "cityscapes_preprocessed"
+    split.mkdir(parents=True)
+    (split / "train_files.txt").write_text(
+        "\n".join(f"{CS_CITY} {f}" for f in frames[:n_train]))
+    (split / "test_files.txt").write_text(
+        "\n".join(f"{CS_CITY} {f}" for f in frames[:n_test]))
+    if gt:
+        gt_dir = root / "splits" / "cityscapes" / "gt_depths"
+        gt_dir.mkdir(parents=True)
+        for i in range(n_test):
+            depth = rng.rand(1024, 2048) * 69 + 1
+            mask = rng.rand(1024, 2048) < 0.3
+            np.save(str(gt_dir / f"{i:03d}_depth.npy"),
+                    np.where(mask, depth, 0).astype(np.float32))
+    return str(root / "cs"), str(ev), str(root / "splits")
