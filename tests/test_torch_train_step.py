@@ -58,22 +58,27 @@ def _flat_sd(tree):
 
 @pytest.fixture(scope="module")
 def jax_run():
-    """One JAX step: (trainable before, after, Adam mu/nu, batch_stats,
-    metrics), all under the port's names, and the step's noise; with the
-    compiled step, its start state, batch and key for further steps."""
-    params, stats = jax_repdepth()
-    model = JRepDepth(OPT)
+    return run_jax_step(OPT)
+
+
+def run_jax_step(opt):
+    """One JAX step of `opt` on `jax_repdepth(opt)`: (trainable before,
+    after, Adam mu/nu, batch_stats, metrics), all under the port's names,
+    and the step's noise; with the compiled step, its start state, batch,
+    key and `opt` for further steps."""
+    params, stats = jax_repdepth(opt)
+    model = JRepDepth(opt)
     tx = jschedule.make_optimizer(LR, steps_per_epoch=100)
     state = jax_create_state(model, {"params": params, "batch_stats": stats},
-                             OPT, tx)
-    batch = make_batch(OPT, B)
+                             opt, tx)
+    batch = make_batch(opt, B)
     rng = jax.random.PRNGKey(SEED)
-    step = compile_reference(jax_make_step(model, OPT, tx, donate=False),
+    step = compile_reference(jax_make_step(model, opt, tx, donate=False),
                              state, batch, rng)
     new, metrics = step(state, batch, rng)
     adam = new.opt_state[0]
     _, _, rng_n1, rng_n2 = jax.random.split(rng, 4)
-    noise = [np.asarray(jax.random.normal(r, (B, OPT.height, OPT.width, 1)))
+    noise = [np.asarray(jax.random.normal(r, (B, opt.height, opt.width, 1)))
              for r in (rng_n1, rng_n2)]
     return dict(
         params=params, stats=stats, batch=batch, noise=noise,
@@ -82,13 +87,17 @@ def jax_run():
         stats_new={k: v.numpy() for k, v in state_dict_from_jax(
             {}, new.batch_stats).items()},
         metrics={k: float(v) for k, v in metrics.items()},
-        step=step, state=state, rng=rng)
+        step=step, state=state, rng=rng, opt=opt)
 
 
 @pytest.fixture(scope="module")
 def port_run(jax_run):
-    """The port's step on the same weights, batch and noise: (model, its
-    parameters before the step, optimizer, metrics)."""
+    return run_port_step(jax_run)
+
+
+def run_port_step(jax_run):
+    """The port's step on the JAX run's weights, batch and noise: (model,
+    its parameters before the step, optimizer, metrics)."""
     model, optim, state, step, draws, batch = _port_step(jax_run)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     _, metrics = step(state, batch, draws)
@@ -98,17 +107,18 @@ def port_run(jax_run):
 def _port_step(jax_run):
     """(model, optimizer, state, step, draws, batch) of a fresh port model
     on the JAX run's weights, batch and noise."""
-    model = RepDepth(OPT)
+    opt = jax_run["opt"]
+    model = RepDepth(opt)
     model.load_state_dict(state_dict_from_jax(jax_run["params"], jax_run["stats"]),
                           strict=True)
-    state = create_train_state(model, OPT, device="cpu")
+    state = create_train_state(model, opt, device="cpu")
     optim, sched = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], LR, 100)
     draws = StepDraws(aug_u=torch.zeros(B),
                       noise_mono=torch.tensor(jax_run["noise"][0]),
                       noise_multi=torch.tensor(jax_run["noise"][1]))
     batch = {k: np.asarray(v) for k, v in jax_run["batch"].items()}
-    return (model, optim, state, make_train_step(model, OPT, optim, sched),
+    return (model, optim, state, make_train_step(model, opt, optim, sched),
             draws, batch)
 
 
