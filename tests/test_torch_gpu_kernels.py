@@ -38,6 +38,11 @@ _B = REPLK_CONFIGS["b"]
 # (C, H, W, k) of the four encoder stages at B=8, 640x192
 STAGES = [(_B["channels"][i], 192 // 4 >> i, 640 // 4 >> i,
            _B["large_kernel_sizes"][i]) for i in range(4)]
+# (C, H, W, k) of the stage-2 step's large-kernel convs at 192x512 (the
+# CityScapes preset): each stage's large kernel and the small k=5
+STAGES_CS = [(C, 192 // 4 >> i, 512 // 4 >> i, k)
+             for i, (C, _, _, lk) in enumerate(STAGES)
+             for k in (lk, _B["small_kernel"])]
 
 
 @pytest.fixture
@@ -274,13 +279,14 @@ def test_lk_dwconv_raises_on_inputs_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("B,C,H,W,k", [
     *((2, *s) for s in STAGES), (2, 20, 9, 21, 7),
-    *((2, 64, 12, 40, k) for k in LK_KS), *LK_RAGGED])
+    *((2, 64, 12, 40, k) for k in LK_KS), *LK_RAGGED,
+    *((12, *s) for s in STAGES_CS)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lk_train_matches_plain(cuda, dtype, B, C, H, W, k):
     """Kernel #2: forward (kernel A, no bias) and d/dx (kernel A on the
     flipped kernel) through the autograd Function, at the training stage
-    shapes (B=2), every instantiated k and the run-time one, and ragged
-    shapes. bf16 as kernel A's test; f32 within 1e-4 of the peak (f32
+    shapes (B=2), every instantiated k and the run-time one, ragged
+    shapes, and every conv shape of the stage-2 step (B=12, 192x512). bf16 as kernel A's test; f32 within 1e-4 of the peak (f32
     summation order over up to 961 taps)."""
     rng = np.random.RandomState(k)
     x = _t(rng, (B, H, W, C), 1.0, cuda, dtype).permute(0, 3, 1, 2)
@@ -303,6 +309,7 @@ def test_lk_train_matches_plain(cuda, dtype, B, C, H, W, k):
 
 @pytest.mark.parametrize("N,H,W,Ho,Wo,C", [
     pytest.param(24, 192, 640, 192, 640, 3, id="24-192-640"),  # one branch's warp
+    pytest.param(24, 192, 512, 192, 512, 3, id="24-192-512"),  # stage 2's
     pytest.param(3, 7, 13, 7, 13, 3, id="3-7-13"),
     (2, 9, 30, 9, 30, 1),    # Wo % 4 == 2
     (2, 8, 21, 8, 21, 2),    # Wo % 4 == 1
@@ -370,6 +377,7 @@ def _near_boundary(A, t, bins, H, W):
 
 @pytest.mark.parametrize("B,C,H,W,D", [
     (8, 128, 48, 160, 96),       # the student's main path, 640x192
+    (12, 128, 48, 128, 96),      # the stage-2 step, 512x192
     (2, 16, 13, 27, 40),         # H*W not a multiple of 8 pixels, D of 32
     (1, 256, 11, 21, 33),        # the widest C
     (2, 192, 48, 160, 96),       # rep_size l's stage 0
