@@ -26,11 +26,13 @@ InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
 adapters, adpt_test=4, 640x192, bf16, merged deploy form, B=8, 96 depth
 bins, ResNet-18 pose net), its stage-1 training step
 (`ppeadepth_tpu_torch.train.step.make_train_step`, the same network in
-training form, bf16 compute on f32 parameters, B=12) and its CLI
-(`python -m ppeadepth_tpu_torch.train`, run in-process) on seeded random
-weights, after building the hand-written kernels from
-`ppeadepth_tpu_torch/csrc/` and holding each against its plain PyTorch
-version at the shapes the paths give it:
+training form, bf16 compute on f32 parameters, B=12), its stage-2 step
+(`--train_cs --dc`: the dec_id-1 decoder adapters and the dc freezing, at
+the CityScapes preset's 512x192) and its CLI (`python -m
+ppeadepth_tpu_torch.train`, run in-process) on seeded random weights,
+after building the hand-written kernels from `ppeadepth_tpu_torch/csrc/`
+and holding each against its plain PyTorch version at the shapes the
+paths give it (the training kernels at 640x192 and at stage 2's 512x192):
 
   * teacher `predict_depth`, 3 requests, against the CPU f32 forward;
   * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
@@ -43,7 +45,16 @@ version at the shapes the paths give it:
   * `--eval --lk_backend pallas` (kernel A in place of the Pallas kernel
     #3, the stem's 3x3 conv included) and `--eval --lk_backend lax` on
     that checkpoint in f32, against each other and, on two images,
-    against the port's CPU eval.
+    against the port's CPU eval;
+  * stage 2: one f32 step at B=2 against the same step on the CPU, and
+    1 + 5 bf16 steps at B=12 (frozen set bit-identical, the decoder
+    adapters moved);
+  * the stage-2 CLI on a synthetic CityScapes set (`--train_cs --dc --ktf
+    --learning_rate 1e-5` from the KITTI run's final checkpoint: from step
+    0, 2 epochs of 2 steps, a validation on the cityscapes_eval layout),
+    then `--eval --eval_split cityscapes` under pallas and lax as above,
+    and serving its checkpoint (one teacher and one student request
+    against the CPU f32 forward).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (and each training step of the CLI by what it adds). Any failed
@@ -112,6 +123,16 @@ BF16_FLOP_PER_S = 989e12    # tensor cores, bf16
 # batch 12), Config's defaults otherwise
 SHIPPED_B = Config(adapter=True, rep_size="b", height=192, width=640)
 TRAIN_B = SHIPPED_B.replace(compute_dtype="bfloat16")
+# Stage 2 (--train_cs --dc, the reference README's second mode): the same
+# network with the dec_id-1 decoder adapters and the dc freezing, a --ktf
+# warm start at learning rate 1e-5, at the CityScapes preset's 192x512
+STAGE2_B = TRAIN_B.replace(train_cs=True, dc=True, dec_id=1, ktf=True,
+                           learning_rate=1e-5).with_mode_presets()
+N_CS_TRAIN = 24         # stage-2 CLI: training triplets, 2 steps an epoch
+N_CS_TEST = 14          # its test frames: an eval batch and a partial one of 2
+CS_EPOCHS = 2
+CS_VALIDATE_EVERY = 4   # one validation and checkpoint, at the last step
+CS_CITY = "aachen"
 
 
 def _time_turns(fns, iters):
@@ -164,12 +185,13 @@ class _Bound:
         return max(self.by_ms, key=self.by_ms.get)
 
 
-def _stage_shapes():
-    """(C, H, W, k, blocks) of the four encoder stages at 640x192."""
+def _stage_shapes(opt=SHIPPED_B):
+    """(C, H, W, k, blocks) of the four encoder stages at opt's size
+    (640x192 for the shipped configuration, 512x192 for stage 2)."""
     from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
 
-    cfg = REPLK_CONFIGS["b"]
-    return [(cfg["channels"][i], 192 // 4 >> i, 640 // 4 >> i,
+    cfg = REPLK_CONFIGS[opt.rep_size]
+    return [(cfg["channels"][i], opt.height // 4 >> i, opt.width // 4 >> i,
              cfg["large_kernel_sizes"][i], cfg["layers"][i])
             for i in range(4)]
 
@@ -589,31 +611,32 @@ def _sweep_bound(B, C, H, W, D, samples, itemsize):
     return (*_bound_ms(nbytes, flop, F32_FLOP_PER_S), flop, nbytes)
 
 
-def check_plane_sweep(dev, rng):
-    """Kernel C against its plain version at the student's main-path shape
-    (B=8, 48x160, C=128, 96 log bins 0.1-10, 1/4-scale KITTI intrinsics, a
-    non-degenerate pose), with f32 and with bf16 features (the main path's
-    dtype, timed by CUDA events as the other kernels of the full run)."""
+def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B):
+    """Kernel C against its plain version at a main-path shape (the
+    student's: B=8, 48x160; the stage-2 step's: B=12, 48x128; C=128, 96 log
+    bins 0.1-10, 1/4-scale KITTI intrinsics, a non-degenerate pose), with
+    f32 and with bf16 features (the main paths' dtype, timed by CUDA events
+    as the other kernels of the full run)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 
-    C, H, W, _, _ = _stage_shapes()[0]
-    D = SHIPPED_B.num_depth_bins
-    A, t, bins, near, samples = _sweep_geometry(dev, rng, BATCH, C, H, W, D)
+    C, H, W, _, _ = _stage_shapes(opt)[0]
+    D = opt.num_depth_bins
+    A, t, bins, near, samples = _sweep_geometry(dev, rng, batch, C, H, W, D)
 
     worst, out = 0.0, {}
     for dtype in (torch.float32, torch.bfloat16):
-        cur = _sweep_feats(dev, rng, BATCH, C, H, W, dtype)
-        lk = _sweep_feats(dev, rng, BATCH, C, H, W, dtype)
+        cur = _sweep_feats(dev, rng, batch, C, H, W, dtype)
+        lk = _sweep_feats(dev, rng, batch, C, H, W, dtype)
         got = plane_sweep(cur, lk, A, t, bins)
         torch.cuda.synchronize()
         ref = plane_sweep_plain(cur, lk, A, t, bins)
-        tag = f"kernel C  [{BATCH},{H},{W},{C}] D={D} {str(dtype)[6:]}"
+        tag = f"kernel C  [{batch},{H},{W},{C}] D={D} {str(dtype)[6:]}"
         worst = max(worst, _hold_sweep(tag, got, ref, near, samples))
         pl, kk = _time_pair(lambda: plane_sweep_plain(cur, lk, A, t, bins),
                             lambda: plane_sweep(cur, lk, A, t, bins), 5)
-        bnd, by, flop, nbytes = _sweep_bound(BATCH, C, H, W, D, samples,
+        bnd, by, flop, nbytes = _sweep_bound(batch, C, H, W, D, samples,
                                              cur.element_size())
         print(f"{tag}: {kk:.4f} ms/call ({flop / kk / 1e9:.2f} TFLOP/s of "
               f"{flop / 1e9:.2f} GFLOP), plain (torch gather) {pl:.4f} ms/call, "
@@ -706,17 +729,18 @@ def _warp_inputs(dev, rng, n, height, width):
     return img, coords
 
 
-def check_warp(dev, rng):
+def check_warp(dev, rng, opt=SHIPPED_B):
     """Kernel D, forward and coordinate gradient, against its plain
     version (torch gathers, autograd for the gradient) at one branch's
-    warp of the training step: [24, 192, 640, 3] (2 frames x B=12), f32."""
+    warp of the training step: [24, 192, 640, 3] (2 frames x B=12; stage
+    2: [24, 192, 512, 3]), f32."""
     import torch
     import torch.nn.functional as F
 
     from ppeadepth_tpu_torch.kernels.warp import (
         coords_grad, warp_border, warp_border_plain)
 
-    n, height, width = 2 * TRAIN_BATCH, SHIPPED_B.height, SHIPPED_B.width
+    n, height, width = 2 * TRAIN_BATCH, opt.height, opt.width
     img, coords = _warp_inputs(dev, rng, n, height, width)
     g = torch.from_numpy(rng.randn(n, height, width, 3).astype("float32")).to(dev)
     lim = torch.tensor([1.0, 1.0], device=dev)
@@ -848,18 +872,19 @@ def _train_lk_calls(opt):
 
     small = REPLK_CONFIGS[opt.rep_size]["small_kernel"]
     calls = []
-    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes()):
+    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes(opt)):
         lookup = blocks if i == 0 else 0
         for kk in (k, small):  # lkb_origin and small_conv
             calls.append((C, H, W, kk, 2 * blocks + lookup, 2 * blocks))
     return calls
 
 
-def check_lk_train(dev, rng):
+def check_lk_train(dev, rng, opt=TRAIN_B):
     """Kernel #2, the training large-kernel conv: kernel A without bias
     (forward) and on the flipped kernel (dx, through the autograd
     Function), against its plain version (cuDNN in f32, TF32 off) at each
-    conv shape of the training step at B=12, in f32 and bf16. Times and
+    conv shape of the training step of `opt` (stage 1 at 640x192, stage 2
+    at 512x192) at B=12, in f32 and bf16. Times and
     bounds are per training step in bf16 (the main path), summed over its
     calls; the library yardstick is cuDNN's depthwise `F.conv2d` forward
     and `torch.nn.grad.conv2d_input`."""
@@ -870,7 +895,7 @@ def check_lk_train(dev, rng):
 
     worst, step = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     bound, f32 = _Bound(), {"ms": 0.0, "plain_ms": 0.0}
-    for C, H, W, k, n_fwd, n_dx in _train_lk_calls(TRAIN_B):
+    for C, H, W, k, n_fwd, n_dx in _train_lk_calls(opt):
         for dtype in (torch.float32, torch.bfloat16):
             def t(shape, scale):
                 return torch.from_numpy((rng.randn(*shape) * scale).astype(
@@ -921,7 +946,8 @@ def check_lk_train(dev, rng):
             else:
                 f32["ms"] += k_f * n_fwd + k_d * n_dx
                 f32["plain_ms"] += p_f * n_fwd + p_d * n_dx
-    print(f"kernel #2 per training step (bf16): {step['ms']:.3f} ms, plain "
+    print(f"kernel #2 per training step (bf16, {opt.width}x{opt.height}): "
+          f"{step['ms']:.3f} ms, plain "
           f"{step['plain_ms']:.3f} ms, bound {bound.ms:.3f} ms; in f32 "
           f"{f32['ms']:.3f} ms, plain {f32['plain_ms']:.3f} ms")
     return dict(max_abs_err=worst, bound_ms=bound.ms, bound_by=bound.by,
@@ -1031,7 +1057,7 @@ def _compare_disp(depth, ref, opt, tag):
         raise AssertionError(f"{tag}: card forward disagrees with the CPU forward")
 
 
-def _latency(fn, requests, tag):
+def _latency(fn, requests, tag, opt=SHIPPED_B):
     """Median host wall of 10 calls, which return host numpy (so the device
     work is finished)."""
     import numpy as np
@@ -1042,15 +1068,15 @@ def _latency(fn, requests, tag):
         fn(*requests[i % len(requests)])
         times.append(time.perf_counter() - t0)
     med = float(np.median(times)) * 1e3
-    print(f"{tag} B={BATCH} 640x192 bf16: median {med:.3f} ms/batch "
+    print(f"{tag} B={BATCH} {opt.width}x{opt.height} bf16: median {med:.3f} ms/batch "
           f"({BATCH / med * 1e3:.2f} images/s), all "
           f"{[round(t * 1e3, 3) for t in times]} ms")
     return med
 
 
-def serve_teacher(sess, cpu, opt, requests):
-    """Answer REQUESTS teacher batches on the card through the kernels;
-    check the outputs, the launch counts and agreement with the CPU f32
+def serve_teacher(sess, cpu, opt, requests, tag="teacher"):
+    """Answer the teacher `requests` on the card through the kernels; check
+    the outputs, the launch counts and agreement with the CPU f32
     forward."""
     import torch
 
@@ -1062,22 +1088,23 @@ def serve_teacher(sess, cpu, opt, requests):
     depths = [sess.predict_depth(img) for img, _ in requests]
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    _check_counts(counts, {"lk_dwconv": blocks * REQUESTS,
-                           "ffn_fused": blocks * REQUESTS, "plane_sweep": 0},
-                  f"teacher: {REQUESTS} requests of B={BATCH}")
-    _check_depths(depths, opt, "teacher")
+    n = len(requests)
+    _check_counts(counts, {"lk_dwconv": blocks * n, "ffn_fused": blocks * n,
+                           "plane_sweep": 0},
+                  f"{tag}: {n} requests of B={BATCH}")
+    _check_depths(depths, opt, tag)
     t0 = time.perf_counter()
     ref = cpu.predict_depth(requests[0][0][:1])
-    print(f"teacher: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
-    _compare_disp(depths[0][:1], ref, opt, "teacher")
+    print(f"{tag}: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
+    _compare_disp(depths[0][:1], ref, opt, tag)
     _latency(lambda img, _: sess.predict_depth(img), requests,
-             "teacher: predict_depth")
-    print(f"teacher: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+             f"{tag}: predict_depth", opt)
+    print(f"{tag}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return counts
 
 
-def serve_student(sess, cpu, opt, requests):
-    """Answer REQUESTS student batches (current frame + previous frame) on
+def serve_student(sess, cpu, opt, requests, tag="student"):
+    """Answer the student `requests` (current frame + previous frame) on
     the card; check the outputs, the launch counts (kernel C once, kernels
     A and B on stage 0 twice and stages 1-3 once) and agreement with the
     CPU f32 forward."""
@@ -1092,19 +1119,19 @@ def serve_student(sess, cpu, opt, requests):
     depths = [sess.predict_depth_multi(img, lk, K, invK) for img, lk in requests]
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    _check_counts(counts, {"lk_dwconv": blocks * REQUESTS,
-                           "ffn_fused": blocks * REQUESTS,
-                           "plane_sweep": REQUESTS},
-                  f"student: {REQUESTS} requests of B={BATCH}")
-    _check_depths(depths, opt, "student")
+    n = len(requests)
+    _check_counts(counts, {"lk_dwconv": blocks * n, "ffn_fused": blocks * n,
+                           "plane_sweep": n},
+                  f"{tag}: {n} requests of B={BATCH}")
+    _check_depths(depths, opt, tag)
     img, lk = requests[0]
     t0 = time.perf_counter()
     ref = cpu.predict_depth_multi(img[:1], lk[:1], K[:1], invK[:1])
-    print(f"student: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
-    _compare_disp(depths[0][:1], ref, opt, "student")
+    print(f"{tag}: CPU f32 forward of one image in {time.perf_counter() - t0:.2f} s")
+    _compare_disp(depths[0][:1], ref, opt, tag)
     _latency(lambda img, lk: sess.predict_depth_multi(img, lk, K, invK),
-             requests, "student: predict_depth_multi")
-    print(f"student: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+             requests, f"{tag}: predict_depth_multi", opt)
+    print(f"{tag}: peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
     return counts
 
 
@@ -1182,17 +1209,18 @@ def _train_setup(sd, opt, device):
     return model, state, make_train_step(model, opt, optim, sched)
 
 
-def train_parity(sd, dev):
-    """One f32 training step on `dev` against the same step on the CPU:
-    the same weights, batch (B=PARITY_BATCH) and draws (matching
-    augmentation from fixed uniforms, drop path off). Compares the loss,
-    every metric and the concatenated trainable gradient."""
+def train_parity(sd, dev, opt=TRAIN_B, tag="parity"):
+    """One f32 training step of `opt` (stage 1, or stage 2) on `dev`
+    against the same step on the CPU: the same weights, batch
+    (B=PARITY_BATCH) and draws (matching augmentation from fixed uniforms,
+    drop path off). Compares the loss, every metric and the concatenated
+    trainable gradient."""
     import numpy as np
     import torch
 
     from ppeadepth_tpu_torch.train.step import StepDraws
 
-    opt = TRAIN_B.replace(compute_dtype="float32", drop_path_rate=0.0)
+    opt = opt.replace(compute_dtype="float32", drop_path_rate=0.0)
     batch = _train_batch(np.random.RandomState(SEED + 2), PARITY_BATCH, opt)
     rng = np.random.RandomState(SEED + 3)
     u = np.linspace(0.1, 0.9, PARITY_BATCH).astype("float32")
@@ -1207,21 +1235,21 @@ def train_parity(sd, dev):
         grads = torch.cat([p.grad.flatten().float().cpu()
                            for p in model.parameters() if p.requires_grad])
         res[device] = ({k: v.item() for k, v in metrics.items()}, grads)
-        print(f"parity: f32 step B={PARITY_BATCH} on {device} in "
-              f"{time.perf_counter() - t0:.2f} s (first call)")
+        print(f"{tag}: f32 step B={PARITY_BATCH} {opt.width}x{opt.height} on "
+              f"{device} in {time.perf_counter() - t0:.2f} s (first call)")
         del model, step
     (m_gpu, g_gpu), (m_cpu, g_cpu) = res[dev.type], res["cpu"]
     worst = max(abs(m_gpu[k] - m_cpu[k]) for k in m_cpu if "depth_bins" not in k)
     bins = max(abs(m_gpu[k] / m_cpu[k] - 1) for k in m_cpu if "depth_bins" in k)
     rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
-    print(f"parity: metrics card {m_gpu}")
-    print(f"parity: metrics CPU  {m_cpu}")
-    print(f"parity: max |d metric| {worst:.3e} (tol {PARITY_METRIC_TOL:g}), depth "
+    print(f"{tag}: metrics card {m_gpu}")
+    print(f"{tag}: metrics CPU  {m_cpu}")
+    print(f"{tag}: max |d metric| {worst:.3e} (tol {PARITY_METRIC_TOL:g}), depth "
           f"bins rel {bins:.3e} (tol {PARITY_BIN_REL:g}), trainable gradient "
           f"({g_cpu.numel()} entries) relative L2 {rel:.3e} (tol {PARITY_GRAD_L2:g})")
     if not (worst <= PARITY_METRIC_TOL and bins <= PARITY_BIN_REL
             and rel <= PARITY_GRAD_L2 and np.isfinite(rel)):
-        raise AssertionError("parity: the card's f32 step disagrees with the CPU's")
+        raise AssertionError(f"{tag}: the card's f32 step disagrees with the CPU's")
     return dict(metric_err=worst, grad_rel_l2=rel)
 
 
@@ -1236,24 +1264,26 @@ def _expected_launches(opt):
             "plane_sweep": len(opt.matching_ids) - 1}
 
 
-def train_steps(sd, dev, profile):
-    """The training phase: bf16 compute, B=TRAIN_BATCH, 640x192, on `dev`:
+def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
+    """The training phase of `opt`: bf16 compute, B=TRAIN_BATCH, on `dev`
+    (stage 1 at 640x192; stage 2 at 512x192 with the decoder adapters):
     one warm-up step and TRAIN_STEPS timed ones, with the launch counts,
-    invariants and depth-bin EMA checked after each."""
+    invariants and depth-bin EMA checked after each. Stage 2 also shows
+    the dc freezing: the decoder trunks and heads frozen, and every
+    parameter of each decoder's `adapter` and `deconv_adpt` moved."""
     import numpy as np
     import torch
 
     from ppeadepth_tpu_torch import kernels
     from ppeadepth_tpu_torch.core.geometry import disp_to_depth
 
-    opt = TRAIN_B
     t0 = time.perf_counter()
     model, state, step = _train_setup(sd, opt, dev.type)
-    print(f"train: state built on the card in {time.perf_counter() - t0:.2f} s")
+    print(f"{tag}: state built on the card in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     batch = _train_batch(np.random.RandomState(SEED + 4), TRAIN_BATCH, opt, dev)
     torch.cuda.synchronize()
-    print(f"train: batch B={TRAIN_BATCH} uploaded in "
+    print(f"{tag}: batch B={TRAIN_BATCH} uploaded in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms (outside the timed steps)")
     named = dict(model.named_parameters())
     trainable = {n for n, p in named.items() if p.requires_grad}
@@ -1276,18 +1306,18 @@ def train_steps(sd, dev, profile):
         dt = (time.perf_counter() - t0) * 1e3
         counts = dict(kernels.launch_counts)
         m = {k: v.item() for k, v in metrics.items()}
-        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss {m['loss']:.6f} "
+        print(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: loss {m['loss']:.6f} "
               f"(mono {m['mono/loss']:.6f}, multi {m['multi/loss']:.6f}, "
               f"consistency {m['multi/consistency']:.6f}), {dt:.3f} ms host wall, "
               f"launches {counts}")
         if counts != expected:
-            raise AssertionError(f"train: launches {counts}, expected {expected}")
+            raise AssertionError(f"{tag}: launches {counts}, expected {expected}")
         if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train: non-finite metrics {m}")
+            raise AssertionError(f"{tag}: non-finite metrics {m}")
         for n in trainable:
             g = named[n].grad
             if not torch.isfinite(g).all():
-                raise AssertionError(f"train: non-finite gradient of {n}")
+                raise AssertionError(f"{tag}: non-finite gradient of {n}")
             if g.abs().max() > 0:
                 had_grad.add(n)
         _, d = disp_to_depth(depths[-1], opt.min_depth, opt.max_depth)
@@ -1296,7 +1326,7 @@ def train_steps(sd, dev, profile):
         want = (old_bins[0] * 0.99 + dmin * 0.01, old_bins[1] * 0.99 + dmax * 0.01)
         got = (m["depth_bins/min"], m["depth_bins/max"])
         if not np.allclose(got, want, rtol=1e-5):
-            raise AssertionError(f"train: depth bins {got}, EMA gives {want}")
+            raise AssertionError(f"{tag}: depth bins {got}, EMA gives {want}")
         if i:
             times.append(dt)
             losses.append(m["loss"])
@@ -1308,7 +1338,7 @@ def train_steps(sd, dev, profile):
     stats_moved = sum(not torch.equal(b, stats0[n])
                       for n, b in model.named_buffers() if n in stats0)
     med = float(np.median(times))
-    print(f"train: {len(trainable)} trainable tensors "
+    print(f"{tag}: {len(trainable)} trainable tensors "
           f"({sum(named[n].numel() for n in trainable)} of "
           f"{sum(p.numel() for p in named.values())} parameters); "
           f"{len(trainable) - len(had_grad)} never had a non-zero gradient "
@@ -1316,19 +1346,45 @@ def train_steps(sd, dev, profile):
           f"did not move; {len(frozen_changed)} frozen tensors changed; "
           f"{stats_moved} of {len(stats0)} BN running statistics moved")
     if frozen_changed or unmoved or stats_moved != len(stats0):
-        raise AssertionError(f"train: frozen changed {frozen_changed[:5]}, "
+        raise AssertionError(f"{tag}: frozen changed {frozen_changed[:5]}, "
                              f"unmoved {unmoved[:5]}, stats moved {stats_moved}")
-    print(f"train: depth bins after {1 + TRAIN_STEPS} steps "
+    if opt.dc:
+        _check_dc_decoders(named, trainable, start, tag)
+    print(f"{tag}: depth bins after {1 + TRAIN_STEPS} steps "
           f"[{state.min_depth_bin.item():.6f}, {state.max_depth_bin.item():.6f}]; "
           f"loss over the timed steps {[round(v, 6) for v in losses]}, "
           f"{'fell' if losses[-1] < losses[0] else 'did not fall'}")
-    print(f"train step B={TRAIN_BATCH} 640x192 bf16: median {med:.3f} ms/step "
+    print(f"{tag} step B={TRAIN_BATCH} {opt.width}x{opt.height} bf16: median "
+          f"{med:.3f} ms/step "
           f"({TRAIN_BATCH / med * 1e3:.2f} images/s), all "
           f"{[round(t, 3) for t in times]} ms; peak device memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)")
     if profile:
-        profile_serving("train_step", lambda: step(state, batch), [()])
+        profile_serving(f"{tag}_step", lambda: step(state, batch), [()])
     return counts
+
+
+def _check_dc_decoders(named, trainable, start, tag):
+    """Stage 2's freezing in each decoder: trunk and head frozen (and, as
+    `train_steps` checked, bit-identical), only `adapter` and `deconv_adpt`
+    trainable, and every one of their parameters moved."""
+    import torch
+
+    for dec in ("depth", "mono_depth"):
+        mods = {n.split(".")[1] for n in named if n.startswith(dec + ".")}
+        trained = sorted(n for n in trainable if n.startswith(dec + "."))
+        moved = [n for n in trained if not torch.equal(named[n], start[n])]
+        frozen = {n.split(".")[1] for n in named
+                  if n.startswith(dec + ".") and n not in trainable}
+        print(f"{tag}: {dec}: {len(trained)} trainable tensors "
+              f"{sorted({n.split('.')[1] for n in trained})}, {len(moved)} moved; "
+              f"frozen {sorted(frozen)}")
+        if ({n.split(".")[1] for n in trained} != {"adapter", "deconv_adpt"}
+                or frozen != mods - {"adapter", "deconv_adpt"}
+                or not {"upconvs_0", "upconvs_1", "disp_convs"} <= frozen
+                or len(moved) != len(trained)):
+            raise AssertionError(f"{tag}: {dec} is not frozen as stage 2 "
+                                 f"freezes it: trained {trained}, moved {moved}")
 
 
 def _eval_lk_calls(opt, post_process=True, teacher=True):
@@ -1343,7 +1399,7 @@ def _eval_lk_calls(opt, post_process=True, teacher=True):
     student = 2 if post_process else 1
     calls = [(cfg["channels"][0], opt.height // 2, opt.width // 2, 3,
               2 * student + teacher)]
-    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes()):
+    for i, (C, H, W, k, blocks) in enumerate(_stage_shapes(opt)):
         n = blocks * (student * (2 if i == 0 else 1) + teacher)
         calls += [(C, H, W, k, n), (C, H, W, cfg["small_kernel"], n)]
     return calls
@@ -1454,33 +1510,19 @@ def _cli_args(extra=()):
             *extra]
 
 
-def train_cli(sd, dev):
-    """`python -m ppeadepth_tpu_torch.train` in-process, from the current
-    directory (the synthetic set): TRAIN_EPOCHS epochs of N_TRAIN items at
-    B=12, bf16, validation and a checkpoint every VALIDATE_EVERY steps,
-    from a seed checkpoint holding `sd` (calibrated random weights; no Adam
-    state, so Adam starts fresh). The counts are set to 0 just before the
-    run and read after it; each training step's launches are what it
-    added to them.
-    Returns (trainer, its final checkpoint folder, the run's counts)."""
-    import os
-
-    import numpy as np
+def _run_cli(args, steps, vals):
+    """`python -m ppeadepth_tpu_torch.train <args>` in-process, with the
+    launch counts and the peak memory statistic set to 0 just before it;
+    each training step appends (start, end, the launches it added, its
+    metrics, the step count it started from) to `steps`, each validation
+    (start, end) to `vals`, and metrics.jsonl gets a record every LOG_EVERY
+    steps. Returns (trainer, wall seconds, the run's counts)."""
     import torch
 
     from ppeadepth_tpu_torch import kernels
-    from ppeadepth_tpu_torch.eval import metrics as M
     from ppeadepth_tpu_torch.train import __main__ as cli
     from ppeadepth_tpu_torch.train import trainer as trainer_mod
 
-    os.makedirs("seed")
-    torch.save(sd, os.path.join("seed", "model.pth"))
-    args = _cli_args(["--compute_dtype", "bfloat16", "--weights_init", "scratch",
-                      "--num_epochs", str(TRAIN_EPOCHS), "--validate_every",
-                      str(VALIDATE_EVERY), "--log_dir", "ckpt", "--name", "smoke",
-                      "--pytorch_random_seed", "0", "--load_weights_folder", "seed"])
-    print("train CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
-    steps, vals = [], []
     make_step, run_eval = trainer_mod.make_train_step, trainer_mod.evaluator.run_eval
 
     def counted_make_step(*a, **kw):
@@ -1488,12 +1530,13 @@ def train_cli(sd, dev):
 
         def run(state, batch, draws=None):
             before = dict(kernels.launch_counts)
+            start_step = state.step
             t0 = time.perf_counter()
             state, metrics = step(state, batch, draws)
             torch.cuda.synchronize()
             steps.append((t0, time.perf_counter(),
                           {k: n - before[k] for k, n in kernels.launch_counts.items()},
-                          {k: v.item() for k, v in metrics.items()}))
+                          {k: v.item() for k, v in metrics.items()}, start_step))
             return state, metrics
         return run
 
@@ -1511,17 +1554,43 @@ def train_cli(sd, dev):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         trainer = cli.main(args)
-        wall = time.perf_counter() - t0
-        counts = dict(kernels.launch_counts)
+        return trainer, time.perf_counter() - t0, dict(kernels.launch_counts)
     finally:
         trainer_mod.make_train_step = make_step
         trainer_mod.evaluator.run_eval = run_eval
         trainer_mod.LOG_EVERY = 50
+
+
+def train_cli(sd, dev):
+    """`python -m ppeadepth_tpu_torch.train` in-process, from the current
+    directory (the synthetic set): TRAIN_EPOCHS epochs of N_TRAIN items at
+    B=12, bf16, validation and a checkpoint every VALIDATE_EVERY steps,
+    from a seed checkpoint holding `sd` (calibrated random weights; no Adam
+    state, so Adam starts fresh). The counts are set to 0 just before the
+    run and read after it; each training step's launches are what it
+    added to them.
+    Returns (trainer, its final checkpoint folder, the run's counts)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.eval import metrics as M
+
+    os.makedirs("seed")
+    torch.save(sd, os.path.join("seed", "model.pth"))
+    args = _cli_args(["--compute_dtype", "bfloat16", "--weights_init", "scratch",
+                      "--num_epochs", str(TRAIN_EPOCHS), "--validate_every",
+                      str(VALIDATE_EVERY), "--log_dir", "ckpt", "--name", "smoke",
+                      "--pytorch_random_seed", "0", "--load_weights_folder", "seed"])
+    print("train CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
+    steps, vals = [], []
+    trainer, wall, counts = _run_cli(args, steps, vals)
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = TRAIN_EPOCHS * N_TRAIN // EVAL_BATCH
     expected = _expected_launches(TRAIN_B)
-    for i, (_, _, c, m) in enumerate(steps):
+    for i, (_, _, c, m, _) in enumerate(steps):
         print(f"train CLI step {i + 1}: loss {m['loss']:.6f}, launches {c}")
         if c != expected:
             raise AssertionError(f"train CLI: step {i + 1} launches {c}, "
@@ -1569,7 +1638,7 @@ def train_cli(sd, dev):
     clean = [steps[i][1] - steps[i - 1][1] for i in range(1, len(steps))
              if i % per_epoch and not any(steps[i - 1][1] <= v0 < steps[i][0]
                                           for v0, _ in vals)]
-    step_ms = [(e - s) * 1e3 for s, e, _, _ in steps]
+    step_ms = [(e - s) * 1e3 for s, e, *_ in steps]
     print(f"train CLI B={EVAL_BATCH} 640x192 bf16: loop "
           f"{EVAL_BATCH * len(clean) / sum(clean):.2f} images/s over "
           f"{len(clean)} steps with their loader wait (intervals "
@@ -1629,19 +1698,256 @@ def check_resume(trainer, folder):
         raise AssertionError(f"resume: not exact: {bad[:10]}")
 
 
+def _stage2_state_dict(sd, opt):
+    """Stage 2's weights for its step phases: the stage-1 weights `sd`
+    (calibrated random) and, in each decoder, the dec_id-1 adapter from
+    `init_weights` with its D_fc2 and the deconv_adpt kernel drawn from a
+    numpy seed (small, not zero, as `_random_state_dict` draws D_fc2), so
+    every adapter parameter has a gradient from the first step."""
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.models import init_weights
+    from ppeadepth_tpu_torch.models.depth_decoder import DepthDecoderV2
+    from ppeadepth_tpu_torch.models.replknet import num_ch_enc
+
+    rng = np.random.RandomState(SEED + 6)
+    out = dict(sd)
+    for i, prefix in enumerate(("depth", "mono_depth")):
+        dec = DepthDecoderV2(num_ch_enc(opt.rep_size), dc=True,
+                             dec_id=opt.dec_id, dec_ratio=opt.dec_ratio)
+        init_weights(dec, torch.Generator().manual_seed(SEED + i))
+        for k, v in dec.state_dict().items():
+            if f"{prefix}.{k}" in sd:
+                continue
+            if k.endswith("weight") and ("D_fc2" in k or "deconv_adpt" in k):
+                v = torch.from_numpy(rng.randn(*v.shape).astype("float32") * 0.05)
+            out[f"{prefix}.{k}"] = v
+    return out
+
+
+def _texture(rng, height, width):
+    """A smooth random RGB texture [height, width, 3] in [0, 255]."""
+    import numpy as np
+
+    base = rng.rand(height, width, 3) * 255
+    for _ in range(3):
+        base = (0.5 * base + 0.125 * (np.roll(base, 1, 0) + np.roll(base, -1, 0)
+                                      + np.roll(base, 1, 1) + np.roll(base, -1, 1)))
+    return base
+
+
+def _cityscapes_set(root, rng):
+    """A synthetic CityScapes set under `root`: N_CS_TRAIN ManyDepth-
+    preprocessed training triplets (cs/<city>/<frame>.jpg: frames -1, 0
+    and +1 of 1024x384 side by side, a smooth random texture panning 3 px
+    a frame, and <frame>_cam.txt); the `cityscapes_eval` layout of
+    N_CS_TEST test frames (cs_eval/leftImg8bit/test/<city>/
+    <frame>_leftImg8bit.png at 2048x1024, frame -2 panned 6 px in
+    leftImg8bit_sequence/test, and the camera JSONs of
+    camera_trainvaltest/camera/test); the split files of
+    cityscapes_preprocessed; and splits/cityscapes/gt_depths/
+    NNN_depth.npy of the test frames (1024x2048, smooth depths of 5-60 m
+    at ~5 % of the pixels, as the disparity-derived GT leaves gaps)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    train = os.path.join(root, "cs", CS_CITY)
+    os.makedirs(train)
+    base = _texture(rng, 384, 1024 + 3 * (N_CS_TRAIN + 2))
+    cam = np.array([[1100.0, 0.0, 512.0, 0.0, 1100.0, 200.0, 0.0, 0.0, 1.0]])
+    frames = [f"{CS_CITY}_{i:06d}_000019" for i in range(N_CS_TRAIN)]
+    for i, frame in enumerate(frames):
+        wide = np.concatenate([base[:, 3 * (i + j):3 * (i + j) + 1024]
+                               for j in range(3)], 1)
+        Image.fromarray(wide.astype(np.uint8)).save(
+            os.path.join(train, f"{frame}.jpg"), quality=92)
+        np.savetxt(os.path.join(train, f"{frame}_cam.txt"), cam, delimiter=",")
+
+    ev = os.path.join(root, "cs_eval")
+    dirs = [os.path.join(ev, k, "test", CS_CITY)
+            for k in ("leftImg8bit", "leftImg8bit_sequence")]
+    camera = os.path.join(ev, "camera_trainvaltest", "camera", "test", CS_CITY)
+    gt_dir = os.path.join(root, "splits", "cityscapes", "gt_depths")
+    for d in (*dirs, camera, gt_dir):
+        os.makedirs(d)
+    tests = [f"{CS_CITY}_{i:06d}_000019" for i in range(1000, 1000 + N_CS_TEST)]
+    yy, xx = np.mgrid[0:1024, 0:2048] / np.array([1024.0, 2048.0])[:, None, None]
+    intrinsic = {"fx": 2262.52, "fy": 2265.3017905988554, "u0": 1096.98,
+                 "v0": 513.137}
+    for i, frame in enumerate(tests):
+        base = _texture(rng, 1024, 2048 + 6)
+        prev = frame[:-6] + "000017"
+        for d, name, off in ((dirs[0], frame, 6), (dirs[1], prev, 0)):
+            Image.fromarray(base[:, off:off + 2048].astype(np.uint8)).save(
+                os.path.join(d, f"{name}_leftImg8bit.png"), compress_level=1)
+        with open(os.path.join(camera, f"{frame}_camera.json"), "w") as fh:
+            json.dump({"intrinsic": intrinsic}, fh)
+        depth = 5 + 55 * (0.5 + 0.5 * np.sin(3 * xx + i) * np.cos(2 * yy))
+        np.save(os.path.join(gt_dir, f"{i:03d}_depth.npy"),
+                np.where(rng.rand(1024, 2048) < 0.05, depth, 0).astype("float32"))
+    split = os.path.join(root, "splits", "cityscapes_preprocessed")
+    os.makedirs(split)
+    for name, items in (("train", frames), ("test", tests)):
+        with open(os.path.join(split, f"{name}_files.txt"), "w") as fh:
+            fh.write("\n".join(f"{CS_CITY} {f}" for f in items) + "\n")
+
+
+def _cs_cli_args(extra=()):
+    """The CLI flags of stage 2 on the synthetic CityScapes set: the
+    --train_cs preset (192x512, the cityscapes_preprocessed split, the
+    cityscapes eval split) and the dec_id-1 decoder adapters."""
+    return ["--train_cs", "--dc", "--adapter", "--rep_size", "b",
+            "--batch_size", str(EVAL_BATCH), "--data_path", "cs",
+            "--cs_eval_path", "cs_eval", "--num_workers", "8", *extra]
+
+
+def train_cli_stage2(warm_start):
+    """Stage 2 through the CLI, in-process, on the synthetic CityScapes set
+    (`python -m ppeadepth_tpu_torch.train --train_cs --dc --adapter --ktf
+    --learning_rate 1e-5 --load_weights_folder <warm_start>`, the KITTI
+    phase's final checkpoint): CS_EPOCHS epochs of N_CS_TRAIN triplets at
+    B=12, bf16, a validation on the cityscapes_eval layout and a checkpoint
+    every CS_VALIDATE_EVERY steps. Checks the preset's size, that stage 2
+    starts at step 0 (not at the warm start's step) and runs every step of
+    its epochs, each step's launches (stage 1's), the whole run's, the
+    validation records, every frozen parameter against the warm start's,
+    and the checkpoints. Returns (the final checkpoint folder, the run's
+    counts)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.ckpt import io as ckpt_io
+
+    args = _cs_cli_args(["--ktf", "--learning_rate", "1e-5",
+                         "--load_weights_folder", warm_start,
+                         "--compute_dtype", "bfloat16",
+                         "--num_epochs", str(CS_EPOCHS),
+                         "--validate_every", str(CS_VALIDATE_EVERY),
+                         "--log_dir", "ckpt", "--name", "cs",
+                         "--pytorch_random_seed", "0"])
+    print("stage-2 CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
+    warm_step = ckpt_io.read_track(warm_start)["step"]
+    steps, vals = [], []
+    trainer, wall, counts = _run_cli(args, steps, vals)
+    peak = torch.cuda.max_memory_allocated()
+    opt = trainer.opt
+
+    n_steps = CS_EPOCHS * N_CS_TRAIN // EVAL_BATCH
+    expected = _expected_launches(STAGE2_B)
+    for i, (_, _, c, m, _) in enumerate(steps):
+        print(f"stage-2 CLI step {i + 1}: loss {m['loss']:.6f}, launches {c}")
+        if c != expected:
+            raise AssertionError(f"stage-2 CLI: step {i + 1} launches {c}, "
+                                 f"expected {expected}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"stage-2 CLI: non-finite metrics {m}")
+    starts = [st[4] for st in steps]
+    print(f"stage-2 CLI: {opt.dataset} at {opt.width}x{opt.height}; the warm "
+          f"start's track.json step {warm_step}; the steps started from "
+          f"{starts}, the run ended at step {trainer.state.step}")
+    if ((opt.height, opt.width) != (STAGE2_B.height, STAGE2_B.width)
+            or opt.dataset != "cityscapes_preprocessed"):
+        raise AssertionError(f"stage-2 CLI: preset not applied: {opt.dataset} "
+                             f"{opt.width}x{opt.height}")
+    if starts != list(range(n_steps)) or trainer.state.step != n_steps:
+        raise AssertionError(f"stage-2 CLI: steps started from {starts}, "
+                             f"expected 0 .. {n_steps - 1}")
+    n_val = n_steps // CS_VALIDATE_EVERY
+    val_batches = n_val * -(-N_CS_TEST // EVAL_BATCH)
+    per_val = sum(c[4] for c in _eval_lk_calls(STAGE2_B, False)[1:])
+    _check_counts(counts, {
+        "lk_dwconv": n_steps * expected["lk_dwconv"] + val_batches * per_val,
+        "lk_dwconv_dx": n_steps * expected["lk_dwconv_dx"],
+        "warp_fwd": 2 * n_steps, "warp_bwd": 2 * n_steps, "ffn_fused": 0,
+        "plane_sweep": n_steps + val_batches},
+        f"stage-2 CLI: {n_steps} steps and {n_val} validations")
+
+    log = os.path.join("ckpt", "cs")
+    with open(os.path.join(log, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    for prefix in ("val", "val_mono"):
+        got = [r for r in recs if r["prefix"] == prefix]
+        if len(got) != n_val or not all(
+                np.isfinite(v) for r in got for k, v in r.items()
+                if k not in ("step", "prefix")):
+            raise AssertionError(f"stage-2 CLI: metrics.jsonl {prefix} records {got}")
+    warm = torch.load(os.path.join(warm_start, "model.pth"), weights_only=True)
+    named = dict(trainer.model.named_parameters())
+    frozen = [n for n, p in named.items() if not p.requires_grad]
+    changed = [n for n in frozen if not torch.equal(named[n].detach().cpu(), warm[n])]
+    new = sorted(n for n in named if n not in warm)
+    moved = [n for n in new if named[n].detach().abs().max() > 0]
+    print(f"stage-2 CLI: {len(frozen)} frozen tensors, {len(changed)} differ from "
+          f"the warm start; {len(new)} stage-2 tensors new to it, non-zero after "
+          f"the run: {moved}; validation records {[r for r in recs if r['prefix'] == 'val']}")
+    stage2_names = {f"{d}.{m}.{p}" for d in ("depth", "mono_depth")
+                    for m, p in (("adapter.D_fc1", "weight"), ("adapter.D_fc1", "bias"),
+                                 ("adapter.D_fc2", "weight"), ("adapter.D_fc2", "bias"),
+                                 ("deconv_adpt", "weight"), ("deconv_adpt", "bias"))}
+    if (changed or set(new) != stage2_names
+            or not {"depth.deconv_adpt.bias", "mono_depth.deconv_adpt.bias"} <= set(moved)):
+        raise AssertionError(f"stage-2 CLI: frozen changed {changed[:5]}, new "
+                             f"{new}, moved {moved}")
+    folders = [f"cs_s{s}" for s in range(CS_VALIDATE_EVERY, n_steps + 1,
+                                         CS_VALIDATE_EVERY)] + ["cs_final"]
+    for folder in folders:
+        for name in ("model.pth", "adam.pth", "track.json", "opt.json"):
+            if not os.path.isfile(os.path.join(log, folder, name)):
+                raise AssertionError(f"stage-2 CLI: {folder}/{name} missing")
+    step_ms = [(e - s) * 1e3 for s, e, *_ in steps]
+    print(f"stage-2 CLI B={EVAL_BATCH} {opt.width}x{opt.height} bf16: steps "
+          f"{[round(t, 3) for t in step_ms]} ms; validations "
+          f"{[round((e - s) * 1e3, 3) for s, e in vals]} ms; checkpoints "
+          f"{folders}; whole run {wall:.2f} s; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    return os.path.join(log, "cs_final"), counts
+
+
+def serve_stage2(folder):
+    """Serving a stage-2 checkpoint (the stage-2 CLI's final one): a merged
+    bf16 session on the card and an f32 session on the CPU, both built
+    from the folder with their decoder adapters; one teacher and one
+    student request of B=8 at 512x192 through the kernels, against the CPU
+    f32 forward under DISP_*, with their launch counts."""
+    import numpy as np
+
+    from ppeadepth_tpu_torch.serve import InferenceSession
+
+    opt = STAGE2_B
+    t0 = time.perf_counter()
+    sess = InferenceSession(opt, checkpoint=folder, device="cuda", dtype="bfloat16")
+    cpu = InferenceSession(opt, checkpoint=folder, device="cpu", dtype="float32")
+    print(f"stage-2 serve: sessions built from {folder} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    img = np.random.RandomState(SEED + 7).rand(
+        BATCH, opt.height, opt.width, 3).astype("float32")
+    requests = [(img, np.roll(img, (2, 5), (1, 2)).copy())]
+    return {"predict_depth_stage2": serve_teacher(sess, cpu, opt, requests,
+                                                  "stage-2 teacher"),
+            "predict_depth_multi_stage2": serve_student(sess, cpu, opt, requests,
+                                                        "stage-2 student")}
+
+
 def _rel(a, b):
     import numpy as np
 
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def eval_cli(folder, profile):
+def eval_cli(folder, profile, stage2=False):
     """`python -m ppeadepth_tpu_torch.train --eval --lk_backend pallas` on
     the final checkpoint, f32, with --eval_teacher and --post_process, then
     the same under --lk_backend lax; the launches of each run (read with
     the counts set to 0 just before it) are exact, their metrics finite,
     and the pallas run's disparities agree with the lax run's and, on the
-    first two test images, with the port's CPU eval. With `profile`, a
+    first two test images, with the port's CPU eval. On the synthetic
+    KITTI set, or with `stage2` `--train_cs --dc --eval` (--eval_split
+    cityscapes) on the cityscapes_eval layout. With `profile`, a
     device-time breakdown of the pallas eval step on the first batch."""
     import numpy as np
     import torch
@@ -1655,9 +1961,15 @@ def eval_cli(folder, profile):
     from ppeadepth_tpu_torch.train import __main__ as cli
     from ppeadepth_tpu_torch.train.trainer import readlines
 
-    base = _cli_args(["--eval", "--load_weights_folder", folder, "--eval_teacher",
-                      "--post_process"])
-    batches = -(-N_TEST // EVAL_BATCH)
+    extra = ["--eval", "--load_weights_folder", folder, "--eval_teacher",
+             "--post_process"]
+    if stage2:
+        base, size, n_test, tag = _cs_cli_args(extra), STAGE2_B, N_CS_TEST, "eval CLI cityscapes"
+        ds_name, data_path, split = "cityscapes_eval", "cs_eval", "cityscapes_preprocessed"
+    else:
+        base, size, n_test, tag = _cli_args(extra), SHIPPED_B, N_TEST, "eval CLI"
+        ds_name, data_path, split = "kitti", "kitti", "smoke"
+    batches = -(-n_test // EVAL_BATCH)
     captured, runs = [], {}
     predict = evaluator.predict_disps
 
@@ -1671,24 +1983,24 @@ def eval_cli(folder, profile):
     try:
         for backend in ("pallas", "lax"):
             args = base + ["--lk_backend", backend]
-            print(f"eval CLI: python -m ppeadepth_tpu_torch.train {' '.join(args)}")
+            print(f"{tag}: python -m ppeadepth_tpu_torch.train {' '.join(args)}")
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             errors, mono = cli.main(args)
             wall = time.perf_counter() - t0
             counts = dict(kernels.launch_counts)
-            calls = _eval_lk_calls(SHIPPED_B)[(backend == "lax"):]
+            calls = _eval_lk_calls(size)[(backend == "lax"):]
             _check_counts(counts, {"lk_dwconv": batches * sum(c[4] for c in calls),
                                    "plane_sweep": 2 * batches, "ffn_fused": 0,
                                    "lk_dwconv_dx": 0, "warp_fwd": 0, "warp_bwd": 0},
-                          f"eval CLI {backend}: {N_TEST} images in {batches} batches")
+                          f"{tag} {backend}: {n_test} images in {batches} batches")
             if not (np.isfinite(errors).all() and np.isfinite(mono).all()):
-                raise AssertionError(f"eval CLI {backend}: non-finite metrics")
+                raise AssertionError(f"{tag} {backend}: non-finite metrics")
             device_pass = captured[-1][2]
-            print(f"eval CLI {backend}: {wall:.2f} s for {N_TEST} images "
-                  f"({wall / N_TEST * 1e3:.2f} ms per image, model load, "
+            print(f"{tag} {backend}: {wall:.2f} s for {n_test} images "
+                  f"({wall / n_test * 1e3:.2f} ms per image, model load, "
                   f"loader and CPU metric pass included); the device pass with "
-                  f"its loader {device_pass:.3f} s ({device_pass / N_TEST * 1e3:.2f} "
+                  f"its loader {device_pass:.3f} s ({device_pass / n_test * 1e3:.2f} "
                   f"ms per image); student {errors.tolist()}, teacher {mono.tolist()}")
             runs[backend] = (errors, mono, *captured[-1][:2], counts)
     finally:
@@ -1698,18 +2010,18 @@ def eval_cli(folder, profile):
     disp_err = max(_rel(d_p, d_l), _rel(md_p, md_l))
     metric_err = max(float(np.max(np.abs(a - b) / np.abs(b)))
                      for a, b in ((e_p, e_l), (m_p, m_l)))
-    print(f"eval CLI pallas vs lax: disparities max|d| {disp_err:.3e} of max|ref| "
+    print(f"{tag} pallas vs lax: disparities max|d| {disp_err:.3e} of max|ref| "
           f"(tol {EVAL_LAX_REL_TOL:g}), metrics max rel {metric_err:.3e} "
           f"(tol {EVAL_METRIC_REL_TOL:g})")
     if not (disp_err <= EVAL_LAX_REL_TOL and metric_err <= EVAL_METRIC_REL_TOL):
-        raise AssertionError("eval CLI: pallas and lax disagree")
+        raise AssertionError(f"{tag}: pallas and lax disagree")
 
-    opt = parse_args(base + ["--lk_backend", "pallas"])
+    opt = parse_args(base + ["--lk_backend", "pallas"]).with_mode_presets()
     model = RepDepth(opt)
     track = ckpt_io.load_model(folder, model)
-    files = readlines("splits/smoke/test_files.txt")
+    files = readlines(f"splits/{split}/test_files.txt")
     if profile:
-        ds = D.DATASETS["kitti"]("kitti", files[:EVAL_BATCH], opt.height,
+        ds = D.DATASETS[ds_name](data_path, files[:EVAL_BATCH], opt.height,
                                  opt.width, [0, -1], 4)
         batch = next(iter(D.DataLoader(ds, EVAL_BATCH, shuffle=False)))
         batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
@@ -1721,7 +2033,7 @@ def eval_cli(folder, profile):
 
     # the port's CPU eval of the first two test images, same checkpoint
     files = files[:2]
-    ds = D.DATASETS["kitti"]("kitti", files, opt.height, opt.width, [0, -1], 4)
+    ds = D.DATASETS[ds_name](data_path, files, opt.height, opt.width, [0, -1], 4)
     t0 = time.perf_counter()
     with torch.no_grad():
         d_c, md_c = evaluator.predict_disps(
@@ -1729,12 +2041,12 @@ def eval_cli(folder, profile):
                                           drop_last=False)),
             track["min_depth_bin"], track["max_depth_bin"], True, device="cpu")
     cpu_err = max(_rel(d_p[:2], d_c), _rel(md_p[:2], md_c))
-    print(f"eval CLI card vs CPU (first 2 test images, f32, CPU pass "
+    print(f"{tag} card vs CPU (first 2 test images, f32, CPU pass "
           f"{time.perf_counter() - t0:.2f} s): disparities max|d| {cpu_err:.3e} "
           f"of max|ref| (tol {EVAL_CPU_REL_TOL:g}); range [{d_c.min():.4f}, "
           f"{d_c.max():.4f}]")
     if not cpu_err <= EVAL_CPU_REL_TOL:
-        raise AssertionError("eval CLI: the card's disparities disagree with the CPU's")
+        raise AssertionError(f"{tag}: the card's disparities disagree with the CPU's")
     return counts
 
 
@@ -1883,6 +2195,10 @@ def main():
     d = check_warp(dev, rng)
     lk2 = check_lk_train(dev, rng)
     lk3 = check_lk_pallas(dev, rng)
+    # the kernels of the stage-2 step at its 512x192 shapes
+    lk2_cs = check_lk_train(dev, rng, STAGE2_B)
+    c_cs = check_plane_sweep(dev, rng, TRAIN_BATCH, STAGE2_B)
+    d_cs = check_warp(dev, rng, STAGE2_B)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -1914,51 +2230,83 @@ def main():
     del sess, cpu
     train_parity(sd, dev)
     by_path["train_step"] = train_steps(sd, dev, profile)
+    sd2 = _stage2_state_dict(sd, STAGE2_B)
+    train_parity(sd2, dev, STAGE2_B, "stage-2 parity")
+    by_path["train_step_stage2"] = train_steps(sd2, dev, profile, STAGE2_B,
+                                               "stage2")
+    del sd2
 
     # the CLI: training with validation and checkpoints, resume, and --eval,
     # on a synthetic KITTI set in a temporary directory
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
         _kitti_set(root, np.random.RandomState(SEED + 5))
+        _cityscapes_set(root, np.random.RandomState(SEED + 8))
+        print(f"synthetic KITTI and CityScapes sets written in "
+              f"{time.perf_counter() - t0:.2f} s")
         os.chdir(root)
         try:
             trainer, final, by_path["train_cli"] = train_cli(sd, dev)
             check_resume(trainer, final)
             del trainer
             by_path["eval_pallas"] = eval_cli(final, profile)
+            # stage 2 from the KITTI run's final checkpoint, its CityScapes
+            # eval, and serving its checkpoint
+            cs_final, by_path["train_cli_stage2"] = train_cli_stage2(final)
+            by_path["eval_cityscapes"] = eval_cli(cs_final, False, stage2=True)
+            by_path.update(serve_stage2(cs_final))
         finally:
             os.chdir(cwd)
 
+    # #6 at the stage-2 shape: one entry, the forward, with the backward's
+    # numbers beside it
+    d_cs_entry = dict(d_cs["forward"], **{
+        f"backward_{k}": v for k, v in d_cs["backward"].items()},
+        backward_launches=by_path["train_step_stage2"]["warp_bwd"])
     entries = []
-    for kname, src, replaces, res, per, path in (
-            ("lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
+    for name, kname, src, replaces, res, per, path in (
+            ("lk_dwconv", "lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
              "teacher forward (24 calls)", "predict_depth_multi"),
-            ("ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
+            ("ffn_fused", "ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
              "teacher forward (24 calls)", "predict_depth_multi"),
-            ("plane_sweep", "plane_sweep.cu", "cost_volume_mxu.py:149", c,
+            ("plane_sweep", "plane_sweep", "plane_sweep.cu",
+             "cost_volume_mxu.py:149", c,
              "call (one per student request)", "predict_depth_multi"),
-            ("warp_fwd", "warp_border.cu", "warp_mxu.py:269", d["forward"],
-             "call ([24,192,640,3], one per branch)", "train_step"),
-            ("warp_bwd", "warp_border.cu", "warp_mxu.py:269", d["backward"],
-             "call ([24,192,640,3], one per branch)", "train_step"),
-            ("lk_dwconv_dx", "lk_dwconv.cu", "banded_conv.py:152", lk2,
-             "training step, bf16 (100 forward + 96 dx calls of kernel A)",
+            ("warp_fwd", "warp_fwd", "warp_border.cu", "warp_mxu.py:269",
+             d["forward"], "call ([24,192,640,3], one per branch)", "train_step"),
+            ("warp_bwd", "warp_bwd", "warp_border.cu", "warp_mxu.py:269",
+             d["backward"], "call ([24,192,640,3], one per branch)", "train_step"),
+            ("lk_dwconv_dx", "lk_dwconv_dx", "lk_dwconv.cu", "banded_conv.py:152",
+             lk2, "training step, bf16 (100 forward + 96 dx calls of kernel A)",
              "train_step"),
-            ("lk_dwconv", "lk_dwconv.cu", "lk_conv_pallas.py:70", lk3,
+            ("lk_dwconv (kernel #3)", "lk_dwconv", "lk_dwconv.cu",
+             "lk_conv_pallas.py:70", lk3,
              "f32 eval batch of 12 under --lk_backend pallas (157 calls of "
-             "kernel A)", "eval_pallas")):
+             "kernel A)", "eval_pallas"),
+            ("lk_dwconv_dx (stage 2)", "lk_dwconv_dx", "lk_dwconv.cu",
+             "banded_conv.py:152", lk2_cs,
+             "stage-2 training step at 512x192, bf16 (100 forward + 96 dx "
+             "calls of kernel A)", "train_step_stage2"),
+            ("plane_sweep (stage 2)", "plane_sweep", "plane_sweep.cu",
+             "cost_volume_mxu.py:149", c_cs,
+             "call ([12,48,128,128] bf16, one per stage-2 step)",
+             "train_step_stage2"),
+            ("warp_fwd (stage 2)", "warp_fwd", "warp_border.cu",
+             "warp_mxu.py:269", d_cs_entry,
+             "call ([24,192,512,3], one per branch; backward_* the "
+             "backward's)", "train_step_stage2")):
         entries.append({
-            "name": kname, "route": "cuda",
+            "name": name, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",
             "replaces": f"ppeadepth_tpu/kernels/{replaces}",
             "launches": by_path[path][kname], "max_abs_err": res["max_abs_err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res["library_ms"], "times_per": per,
-            **({"cublas_products_ms": res["cublas_products_ms"]}
-               if "cublas_products_ms" in res else {}),
+            "library_ms": res["library_ms"], "times_per": per, "path": path,
+            **{k: v for k, v in res.items() if k.startswith("backward_")
+               or k == "cublas_products_ms"},
             "launches_by_path": {p: n[kname] for p, n in by_path.items()}})
-    entries[-1]["name"] = "lk_dwconv (kernel #3)"
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
