@@ -2134,6 +2134,7 @@ def main():
     from ppeadepth_tpu_torch.kernels import build
     from ppeadepth_tpu_torch.serve import InferenceSession
 
+    t_run = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}")
@@ -2265,7 +2266,7 @@ def main():
         f"backward_{k}": v for k, v in d_cs["backward"].items()},
         backward_launches=by_path["train_step_stage2"]["warp_bwd"])
     entries = []
-    for name, kname, src, replaces, res, per, path in (
+    for entry, kname, src, replaces, res, per, path in (
             ("lk_dwconv", "lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
              "teacher forward (24 calls)", "predict_depth_multi"),
             ("ffn_fused", "ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
@@ -2297,7 +2298,7 @@ def main():
              "call ([24,192,512,3], one per branch; backward_* the "
              "backward's)", "train_step_stage2")):
         entries.append({
-            "name": name, "route": "cuda",
+            "name": entry, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",
             "replaces": f"ppeadepth_tpu/kernels/{replaces}",
             "launches": by_path[path][kname], "max_abs_err": res["max_abs_err"],
@@ -2307,6 +2308,7 @@ def main():
             **{k: v for k, v in res.items() if k.startswith("backward_")
                or k == "cublas_products_ms"},
             "launches_by_path": {p: n[kname] for p, n in by_path.items()}})
+    print(f"chip_smoke: the whole run took {time.perf_counter() - t_run:.2f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
