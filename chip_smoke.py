@@ -1561,6 +1561,65 @@ def _run_cli(args, steps, vals):
         trainer_mod.LOG_EVERY = 50
 
 
+def _check_cli_run(tag, opt, trainer, steps, counts, n_steps, validate_every,
+                   n_test, log, name):
+    """The checks of a training CLI run (`_run_cli`) of `opt`: each step's
+    launches (`_expected_launches`) and finite metrics; n_steps steps; the
+    run's launches, the steps' and per validation batch the student's once
+    and the teacher's (kernel A 52 + 48 calls, kernel C once) over
+    ceil(n_test / B) batches a validation; metrics.jsonl's train, val and
+    val_mono records under their keys, finite; and the four files of each
+    checkpoint. Returns the checkpoint folders under `log`."""
+    import os
+
+    import numpy as np
+
+    from ppeadepth_tpu_torch.eval import metrics as M
+
+    expected = _expected_launches(opt)
+    for i, (_, _, c, m, _) in enumerate(steps):
+        print(f"{tag} step {i + 1}: loss {m['loss']:.6f}, launches {c}")
+        if c != expected:
+            raise AssertionError(f"{tag}: step {i + 1} launches {c}, "
+                                 f"expected {expected}")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: non-finite metrics {m}")
+    if len(steps) != n_steps or trainer.state.step != n_steps:
+        raise AssertionError(f"{tag}: {len(steps)} steps, expected {n_steps}")
+    n_val = n_steps // validate_every
+    val_batches = n_val * -(-n_test // EVAL_BATCH)
+    per_val = sum(c[4] for c in _eval_lk_calls(opt, False)[1:])
+    _check_counts(counts, {
+        "lk_dwconv": n_steps * expected["lk_dwconv"] + val_batches * per_val,
+        "lk_dwconv_dx": n_steps * expected["lk_dwconv_dx"],
+        "warp_fwd": 2 * n_steps, "warp_bwd": 2 * n_steps, "ffn_fused": 0,
+        "plane_sweep": n_steps + val_batches},
+        f"{tag}: {n_steps} steps and {n_val} validations")
+
+    with open(os.path.join(log, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    train_keys = {"step", "prefix", *steps[0][3]}
+    val_keys = {"step", "prefix", *M.METRIC_NAMES}
+    for prefix, keys, n in (("train", train_keys, n_steps // LOG_EVERY),
+                            ("val", val_keys, n_val), ("val_mono", val_keys, n_val)):
+        got = [r for r in recs if r["prefix"] == prefix]
+        if len(got) != n or any(set(r) != keys for r in got) or not all(
+                np.isfinite(v) for r in got for k, v in r.items()
+                if k not in ("step", "prefix")):
+            raise AssertionError(f"{tag}: metrics.jsonl {prefix} records {got}")
+    folders = [f"{name}_s{s}" for s in range(validate_every, n_steps + 1,
+                                             validate_every)] + [f"{name}_final"]
+    for folder in folders:
+        for f in ("model.pth", "adam.pth", "track.json", "opt.json"):
+            if not os.path.isfile(os.path.join(log, folder, f)):
+                raise AssertionError(f"{tag}: {folder}/{f} missing")
+    print(f"{tag}: metrics.jsonl holds {len(recs)} records (train, val, "
+          f"val_mono), finite; checkpoints {folders} hold model.pth, "
+          f"adam.pth, track.json, opt.json; validation records "
+          f"{[r for r in recs if r['prefix'] == 'val']}")
+    return folders
+
+
 def train_cli(sd, dev):
     """`python -m ppeadepth_tpu_torch.train` in-process, from the current
     directory (the synthetic set): TRAIN_EPOCHS epochs of N_TRAIN items at
@@ -1572,10 +1631,7 @@ def train_cli(sd, dev):
     Returns (trainer, its final checkpoint folder, the run's counts)."""
     import os
 
-    import numpy as np
     import torch
-
-    from ppeadepth_tpu_torch.eval import metrics as M
 
     os.makedirs("seed")
     torch.save(sd, os.path.join("seed", "model.pth"))
@@ -1589,48 +1645,9 @@ def train_cli(sd, dev):
     peak = torch.cuda.max_memory_allocated()
 
     n_steps = TRAIN_EPOCHS * N_TRAIN // EVAL_BATCH
-    expected = _expected_launches(TRAIN_B)
-    for i, (_, _, c, m, _) in enumerate(steps):
-        print(f"train CLI step {i + 1}: loss {m['loss']:.6f}, launches {c}")
-        if c != expected:
-            raise AssertionError(f"train CLI: step {i + 1} launches {c}, "
-                                 f"expected {expected}")
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train CLI: non-finite metrics {m}")
-    if len(steps) != n_steps or trainer.state.step != n_steps:
-        raise AssertionError(f"train CLI: {len(steps)} steps, expected {n_steps}")
-    # validation: per test batch the student once and the teacher (kernel A
-    # 52 + 48 calls, kernel C once), over ceil(N_TEST / B) batches
-    n_val = n_steps // VALIDATE_EVERY
-    val_batches = n_val * -(-N_TEST // EVAL_BATCH)
-    per_val = sum(c[4] for c in _eval_lk_calls(TRAIN_B, False)[1:])
-    _check_counts(counts, {
-        "lk_dwconv": n_steps * expected["lk_dwconv"] + val_batches * per_val,
-        "lk_dwconv_dx": n_steps * expected["lk_dwconv_dx"],
-        "warp_fwd": 2 * n_steps, "warp_bwd": 2 * n_steps, "ffn_fused": 0,
-        "plane_sweep": n_steps + val_batches},
-        f"train CLI: {n_steps} steps and {n_val} validations")
-
     log = os.path.join("ckpt", "smoke")
-    with open(os.path.join(log, "metrics.jsonl")) as fh:
-        recs = [json.loads(line) for line in fh]
-    train_keys = {"step", "prefix", *steps[0][3]}
-    val_keys = {"step", "prefix", *M.METRIC_NAMES}
-    for prefix, keys, n in (("train", train_keys, n_steps // LOG_EVERY),
-                            ("val", val_keys, n_val), ("val_mono", val_keys, n_val)):
-        got = [r for r in recs if r["prefix"] == prefix]
-        if len(got) != n or any(set(r) != keys for r in got) or not all(
-                np.isfinite(v) for r in got for k, v in r.items()
-                if k not in ("step", "prefix")):
-            raise AssertionError(f"train CLI: metrics.jsonl {prefix} records {got}")
-    folders = [f"smoke_s{s}" for s in range(VALIDATE_EVERY, n_steps + 1, VALIDATE_EVERY)]
-    for folder in folders + ["smoke_final"]:
-        for name in ("model.pth", "adam.pth", "track.json", "opt.json"):
-            if not os.path.isfile(os.path.join(log, folder, name)):
-                raise AssertionError(f"train CLI: {folder}/{name} missing")
-    print(f"train CLI: metrics.jsonl holds {len(recs)} records (train, val, "
-          f"val_mono), finite; checkpoints {folders + ['smoke_final']} hold "
-          f"model.pth, adam.pth, track.json, opt.json")
+    _check_cli_run("train CLI", TRAIN_B, trainer, steps, counts, n_steps,
+                   VALIDATE_EVERY, N_TEST, log, "smoke")
 
     # the loop's rate: a step and the wait for its batch, for steps that are
     # not the first of an epoch and follow no validation
@@ -1818,7 +1835,6 @@ def train_cli_stage2(warm_start):
     counts)."""
     import os
 
-    import numpy as np
     import torch
 
     from ppeadepth_tpu_torch.ckpt import io as ckpt_io
@@ -1838,14 +1854,9 @@ def train_cli_stage2(warm_start):
     opt = trainer.opt
 
     n_steps = CS_EPOCHS * N_CS_TRAIN // EVAL_BATCH
-    expected = _expected_launches(STAGE2_B)
-    for i, (_, _, c, m, _) in enumerate(steps):
-        print(f"stage-2 CLI step {i + 1}: loss {m['loss']:.6f}, launches {c}")
-        if c != expected:
-            raise AssertionError(f"stage-2 CLI: step {i + 1} launches {c}, "
-                                 f"expected {expected}")
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"stage-2 CLI: non-finite metrics {m}")
+    log = os.path.join("ckpt", "cs")
+    folders = _check_cli_run("stage-2 CLI", STAGE2_B, trainer, steps, counts,
+                             n_steps, CS_VALIDATE_EVERY, N_CS_TEST, log, "cs")
     starts = [st[4] for st in steps]
     print(f"stage-2 CLI: {opt.dataset} at {opt.width}x{opt.height}; the warm "
           f"start's track.json step {warm_step}; the steps started from "
@@ -1854,51 +1865,26 @@ def train_cli_stage2(warm_start):
             or opt.dataset != "cityscapes_preprocessed"):
         raise AssertionError(f"stage-2 CLI: preset not applied: {opt.dataset} "
                              f"{opt.width}x{opt.height}")
-    if starts != list(range(n_steps)) or trainer.state.step != n_steps:
+    if starts != list(range(n_steps)):
         raise AssertionError(f"stage-2 CLI: steps started from {starts}, "
                              f"expected 0 .. {n_steps - 1}")
-    n_val = n_steps // CS_VALIDATE_EVERY
-    val_batches = n_val * -(-N_CS_TEST // EVAL_BATCH)
-    per_val = sum(c[4] for c in _eval_lk_calls(STAGE2_B, False)[1:])
-    _check_counts(counts, {
-        "lk_dwconv": n_steps * expected["lk_dwconv"] + val_batches * per_val,
-        "lk_dwconv_dx": n_steps * expected["lk_dwconv_dx"],
-        "warp_fwd": 2 * n_steps, "warp_bwd": 2 * n_steps, "ffn_fused": 0,
-        "plane_sweep": n_steps + val_batches},
-        f"stage-2 CLI: {n_steps} steps and {n_val} validations")
 
-    log = os.path.join("ckpt", "cs")
-    with open(os.path.join(log, "metrics.jsonl")) as fh:
-        recs = [json.loads(line) for line in fh]
-    for prefix in ("val", "val_mono"):
-        got = [r for r in recs if r["prefix"] == prefix]
-        if len(got) != n_val or not all(
-                np.isfinite(v) for r in got for k, v in r.items()
-                if k not in ("step", "prefix")):
-            raise AssertionError(f"stage-2 CLI: metrics.jsonl {prefix} records {got}")
     warm = torch.load(os.path.join(warm_start, "model.pth"), weights_only=True)
     named = dict(trainer.model.named_parameters())
     frozen = [n for n, p in named.items() if not p.requires_grad]
     changed = [n for n in frozen if not torch.equal(named[n].detach().cpu(), warm[n])]
     new = sorted(n for n in named if n not in warm)
-    moved = [n for n in new if named[n].detach().abs().max() > 0]
+    nonzero = [n for n in new if named[n].detach().abs().max() > 0]
     print(f"stage-2 CLI: {len(frozen)} frozen tensors, {len(changed)} differ from "
           f"the warm start; {len(new)} stage-2 tensors new to it, non-zero after "
-          f"the run: {moved}; validation records {[r for r in recs if r['prefix'] == 'val']}")
+          f"the run: {nonzero}")
     stage2_names = {f"{d}.{m}.{p}" for d in ("depth", "mono_depth")
-                    for m, p in (("adapter.D_fc1", "weight"), ("adapter.D_fc1", "bias"),
-                                 ("adapter.D_fc2", "weight"), ("adapter.D_fc2", "bias"),
-                                 ("deconv_adpt", "weight"), ("deconv_adpt", "bias"))}
-    if (changed or set(new) != stage2_names
-            or not {"depth.deconv_adpt.bias", "mono_depth.deconv_adpt.bias"} <= set(moved)):
+                    for m in ("adapter.D_fc1", "adapter.D_fc2", "deconv_adpt")
+                    for p in ("weight", "bias")}
+    if (changed or set(new) != stage2_names or not {
+            "depth.deconv_adpt.bias", "mono_depth.deconv_adpt.bias"} <= set(nonzero)):
         raise AssertionError(f"stage-2 CLI: frozen changed {changed[:5]}, new "
-                             f"{new}, moved {moved}")
-    folders = [f"cs_s{s}" for s in range(CS_VALIDATE_EVERY, n_steps + 1,
-                                         CS_VALIDATE_EVERY)] + ["cs_final"]
-    for folder in folders:
-        for name in ("model.pth", "adam.pth", "track.json", "opt.json"):
-            if not os.path.isfile(os.path.join(log, folder, name)):
-                raise AssertionError(f"stage-2 CLI: {folder}/{name} missing")
+                             f"{new}, non-zero {nonzero}")
     step_ms = [(e - s) * 1e3 for s, e, *_ in steps]
     print(f"stage-2 CLI B={EVAL_BATCH} {opt.width}x{opt.height} bf16: steps "
           f"{[round(t, 3) for t in step_ms]} ms; validations "

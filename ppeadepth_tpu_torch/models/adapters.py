@@ -3,12 +3,14 @@
 Every adapter's last projection `D_fc2` starts at zero, so a fresh adapter
 model is exactly the plain backbone (replknet_adapter.py:482-508);
 `models.repdepth.init_weights` applies that rule. The stage-2 decoder
-adapters (`DecoderAdapter`, `UpAdapter`) compute in float32 under any
-compute dtype, as the JAX modules carry no dtype; their callers in
-`models.depth_decoder` turn autocast off around them.
+adapters (`ChannelAdapter` with another output width, `UpAdapter`)
+compute in float32 under any compute dtype, as the JAX modules carry no
+dtype; `models.depth_decoder` turns autocast off around them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch.nn as nn
 import torch.nn.functional as F
@@ -18,14 +20,20 @@ from .blocks import channel_linear
 
 
 class ChannelAdapter(nn.Module):
-    """Bottleneck MLP over channels: Linear(C -> C*ratio) - GELU -
-    Linear(-> C). The ConvFFN `mlp_adapter` (replknet_adapter.py:20-47)."""
+    """Bottleneck MLP over channels: Linear(C -> hidden) - GELU -
+    Linear(-> C_out), hidden = int((C + C_out) / 2 * ratio), which is
+    int(C * ratio) for C_out = C (the default). The ConvFFN `mlp_adapter`
+    (replknet_adapter.py:20-47) and, with C_out the decoder's width, the
+    stage-2 decoder adapter (JAX `DecoderAdapter`, depth_decoder_v2.py:
+    19-55)."""
 
-    def __init__(self, channels: int, mlp_ratio: float = 0.25):
+    def __init__(self, channels: int, mlp_ratio: float = 0.25,
+                 out_channels: Optional[int] = None):
         super().__init__()
-        hidden = int(channels * mlp_ratio)
+        out_channels = out_channels or channels
+        hidden = int((channels + out_channels) / 2 * mlp_ratio)
         self.D_fc1 = nn.Linear(channels, hidden)
-        self.D_fc2 = nn.Linear(hidden, channels)
+        self.D_fc2 = nn.Linear(hidden, out_channels)
 
     def forward(self, x):
         h = F.gelu(channel_linear(self.D_fc1, x))
@@ -49,24 +57,6 @@ class BAdapter(nn.Module):
 
     def forward(self, x):
         return channel_linear(self.D_fc2, F.gelu(self.D_fc1(x)))
-
-
-class DecoderAdapter(nn.Module):
-    """Stage-2 decoder adapter with differing in and out widths
-    (depth_decoder_v2.py:19-55): Linear(C_in -> hidden) - GELU -
-    Linear(-> C_out), hidden = int((C_in + C_out) / 2 * ratio); `D_fc2`
-    starts at zero."""
-
-    def __init__(self, channels_in: int, channels_out: int,
-                 mlp_ratio: float = 0.25):
-        super().__init__()
-        hidden = int((channels_in + channels_out) / 2 * mlp_ratio)
-        self.D_fc1 = nn.Linear(channels_in, hidden)
-        self.D_fc2 = nn.Linear(hidden, channels_out)
-
-    def forward(self, x):
-        h = F.gelu(channel_linear(self.D_fc1, x))
-        return channel_linear(self.D_fc2, h)
 
 
 class UpAdapter(nn.Module):

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_nearest, upsample2x_nearest
-from .adapters import DecoderAdapter, UpAdapter
+from .adapters import ChannelAdapter, UpAdapter
 from .blocks import Conv3x3, ConvBlock
 
 # the stage-2 designs of the JAX decoder (depth_decoder.py:54-149)
@@ -80,7 +80,7 @@ class DepthDecoderV2(nn.Module):
         adapter_in = {2: ch[0] + ch[3] + ch[2] + ch[1], 3: ch[3]}.get(
             dec_id, ch[0] + ch[3])
         ratio = dec_ratio if dec_id in (1, 5, 6, 7) else 0.25
-        self.adapter = DecoderAdapter(adapter_in, base_ch, ratio)
+        self.adapter = ChannelAdapter(adapter_in, ratio, out_channels=base_ch)
         if dec_id != 8:
             self.deconv_adpt = conv_transpose_3x3s2(base_ch)
         if dec_id == 4:
