@@ -113,8 +113,7 @@ def stage2(run, tmp_path_factory):
     opt = _opt(train, str(tmp / "ckpt"), train_cs=True, dc=True, dec_id=1,
                ktf=True, learning_rate=1e-5, cs_eval_path=ev,
                load_weights_folder=os.path.join(stage1.log_path, "smoke_final"))
-    opt = opt.replace(name="cs", split="cityscapes_preprocessed",
-                      eval_split="cityscapes")
+    opt = opt.replace(name="cs")
     mp = pytest.MonkeyPatch()
     mp.setattr(trainer_mod, "LOG_EVERY", 1)
     try:
