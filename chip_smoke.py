@@ -28,11 +28,14 @@ bins, ResNet-18 pose net), its stage-1 training step
 (`ppeadepth_tpu_torch.train.step.make_train_step`, the same network in
 training form, bf16 compute on f32 parameters, B=12), its stage-2 step
 (`--train_cs --dc`: the dec_id-1 decoder adapters and the dc freezing, at
-the CityScapes preset's 512x192) and its CLI (`python -m
-ppeadepth_tpu_torch.train`, run in-process) on seeded random weights,
-after building the hand-written kernels from `ppeadepth_tpu_torch/csrc/`
-and holding each against its plain PyTorch version at the shapes the
-paths give it (the training kernels at 640x192 and at stage 2's 512x192):
+the CityScapes preset's 512x192), the same with the DynamicDepth cost
+volume (`--dyn_cv --cv_pool`), and its CLIs (`python -m
+ppeadepth_tpu_torch.train`, `evaluate_depth_layer` and `evaluate_ddad`,
+run in-process) on seeded random weights, after building the hand-written
+kernels from `ppeadepth_tpu_torch/csrc/` and holding each against its
+plain PyTorch version at the shapes the paths give it (the training
+kernels at 640x192 and at stage 2's 512x192, #3 and kernel C also at the
+DDAD eval's 320x480):
 
   * teacher `predict_depth`, 3 requests, against the CPU f32 forward;
   * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
@@ -46,15 +49,22 @@ paths give it (the training kernels at 640x192 and at stage 2's 512x192):
     #3, the stem's 3x3 conv included) and `--eval --lk_backend lax` on
     that checkpoint in f32, against each other and, on two images,
     against the port's CPU eval;
+  * the per-block adapter ablation of that checkpoint (the first blocks of
+    each encoder; the unablated eval equal to `--eval`'s);
+  * `evaluate_ddad` on a synthetic DDAD set (1936x1216, evaluated at the
+    forced 320x480) under pallas and lax, against each other and the CPU;
   * stage 2: one f32 step at B=2 against the same step on the CPU, and
     1 + 5 bf16 steps at B=12 (frozen set bit-identical, the decoder
     adapters moved);
+  * --dyn_cv: the dyn volume on the card against the CPU, then the stage-2
+    f32 parity step and 1 + 5 bf16 steps under it (kernel C not launched,
+    the dyn volume once a step), lookup frames with black patches;
   * the stage-2 CLI on a synthetic CityScapes set (`--train_cs --dc --ktf
     --learning_rate 1e-5` from the KITTI run's final checkpoint: from step
     0, 2 epochs of 2 steps, a validation on the cityscapes_eval layout),
     then `--eval --eval_split cityscapes` under pallas and lax as above,
     and serving its checkpoint (one teacher and one student request
-    against the CPU f32 forward).
+    against the CPU f32 forward, and one --dyn_cv student request).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after (and each training step of the CLI by what it adds). Any failed
@@ -76,6 +86,7 @@ import sys
 import tempfile
 import time
 
+from ppeadepth_tpu_torch.evaluate_ddad import eval_config as ddad_eval_config
 from ppeadepth_tpu_torch.options import Config
 
 SEED = 0
@@ -128,6 +139,17 @@ TRAIN_B = SHIPPED_B.replace(compute_dtype="bfloat16")
 # warm start at learning rate 1e-5, at the CityScapes preset's 192x512
 STAGE2_B = TRAIN_B.replace(train_cs=True, dc=True, dec_id=1, ktf=True,
                            learning_rate=1e-5).with_mode_presets()
+# --dyn_cv: stage 2 with the DynamicDepth cost volume in place of kernel C,
+# its pool in-fill on (DynamicDepth's 3-D max-pool of the unoccluded
+# neighbourhood, radius 1, threshold 0.7)
+DYN_B = STAGE2_B.replace(dyn_cv=True, cv_pool=True)
+DYN_REL_TOL = C_REL_TOL  # the dyn volume on the card vs the CPU, off the
+                         # edge-mask boundaries: max|d| <= tol x max|ref|
+# DDAD evaluation: the shipped network at the reference's forced 320x480
+DDAD_B = ddad_eval_config(SHIPPED_B)
+N_DDAD = 14             # DDAD samples: an eval batch and a partial one of 2
+DDAD_RAW = (1216, 1936)  # the native camera's height, width
+ABLATED = 2             # blocks of each encoder the ablation phase gates off
 N_CS_TRAIN = 24         # stage-2 CLI: training triplets, 2 steps an epoch
 N_CS_TEST = 14          # its test frames: an eval batch and a partial one of 2
 CS_EPOCHS = 2
@@ -550,14 +572,26 @@ def _sweep_geometry(dev, rng, B, C, H, W, D):
     count of observed samples (inside both masks)."""
     import torch
 
-    from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins, project
+    from ppeadepth_tpu_torch.ops.cost_volume import compute_depth_bins
 
     K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(H, W, B))
     T = torch.from_numpy(_pose_4x4(rng, B)).to(dev)
+    bins = compute_depth_bins(*DEPTH_BINS, D, device=dev)
+    return _edge_geometry(K, invK, T, bins, H, W)
+
+
+def _edge_geometry(K, invK, T, bins, H, W):
+    """(A, t, bins, near, samples) of `_sweep_geometry` for the poses T
+    [B, 4, 4] under K, invK [B, 4, 4]."""
+    import torch
+
+    from ppeadepth_tpu_torch.ops.cost_volume import project
+
+    B, D = T.shape[0], bins.shape[0]
+    dev = T.device
     P = (K @ T)[:, :3]
     A = (P[:, :, :3] @ invK[:, :3, :3]).contiguous()
     t = P[:, :, 3].contiguous()
-    bins = compute_depth_bins(*DEPTH_BINS, D, device=dev)
     x, y = project(A, t, bins, H, W)
     edge = (x >= 2) & (x <= W - 2) & (y >= 2) & (y <= H - 2)
     near = torch.minimum(torch.minimum((x - 2).abs(), (x - (W - 2)).abs()),
@@ -611,12 +645,14 @@ def _sweep_bound(B, C, H, W, D, samples, itemsize):
     return (*_bound_ms(nbytes, flop, F32_FLOP_PER_S), flop, nbytes)
 
 
-def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B):
+def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B, dtypes=None):
     """Kernel C against its plain version at a main-path shape (the
-    student's: B=8, 48x160; the stage-2 step's: B=12, 48x128; C=128, 96 log
-    bins 0.1-10, 1/4-scale KITTI intrinsics, a non-degenerate pose), with
-    f32 and with bf16 features (the main paths' dtype, timed by CUDA events
-    as the other kernels of the full run)."""
+    student's: B=8, 48x160; the stage-2 step's: B=12, 48x128; the DDAD
+    eval's: B=12, 80x120; C=128, 96 log bins 0.1-10, 1/4-scale KITTI
+    intrinsics, a non-degenerate pose), with f32 and with bf16 features
+    (or `dtypes`), each timed by CUDA events as the other kernels of the
+    full run; the times returned are the last dtype's (bf16, the serving
+    and training paths' dtype, unless `dtypes` says otherwise)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
@@ -626,7 +662,7 @@ def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B):
     A, t, bins, near, samples = _sweep_geometry(dev, rng, batch, C, H, W, D)
 
     worst, out = 0.0, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         cur = _sweep_feats(dev, rng, batch, C, H, W, dtype)
         lk = _sweep_feats(dev, rng, batch, C, H, W, dtype)
         got = plane_sweep(cur, lk, A, t, bins)
@@ -1105,9 +1141,9 @@ def serve_teacher(sess, cpu, opt, requests, tag="teacher"):
 
 def serve_student(sess, cpu, opt, requests, tag="student"):
     """Answer the student `requests` (current frame + previous frame) on
-    the card; check the outputs, the launch counts (kernel C once, kernels
-    A and B on stage 0 twice and stages 1-3 once) and agreement with the
-    CPU f32 forward."""
+    the card; check the outputs, the launch counts (kernel C once, or under
+    --dyn_cv never and the dyn volume once; kernels A and B on stage 0
+    twice and stages 1-3 once) and agreement with the CPU f32 forward."""
     import torch
 
     from ppeadepth_tpu_torch import kernels
@@ -1116,13 +1152,17 @@ def serve_student(sess, cpu, opt, requests, tag="student"):
     K, invK = _kitti_K(opt.height // 4, opt.width // 4, BATCH)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    depths = [sess.predict_depth_multi(img, lk, K, invK) for img, lk in requests]
+    with _DynCalls() as dyn:
+        depths = [sess.predict_depth_multi(img, lk, K, invK)
+                  for img, lk in requests]
     counts = dict(kernels.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     n = len(requests)
     _check_counts(counts, {"lk_dwconv": blocks * n, "ffn_fused": blocks * n,
-                           "plane_sweep": n},
+                           "plane_sweep": 0 if opt.dyn_cv else n},
                   f"{tag}: {n} requests of B={BATCH}")
+    if dyn.n != n * opt.dyn_cv:
+        raise AssertionError(f"{tag}: {dyn.n} calls of the dyn volume")
     _check_depths(depths, opt, tag)
     img, lk = requests[0]
     t0 = time.perf_counter()
@@ -1166,8 +1206,9 @@ def serve_pose(sess, cpu, requests):
 def _train_batch(rng, batch, opt, device=None):
     """A training batch (the JAX batch dict) with real motion: frame 0 is
     a smooth random texture with fine noise, frames -1 and +1 shifted
-    copies of it, as the serving requests; KITTI intrinsics at scales 0 and
-    2. numpy arrays, or tensors on `device`."""
+    copies of it, as the serving requests, under --dyn_cv with black
+    patches (`_occlude`); KITTI intrinsics at scales 0 and 2. numpy
+    arrays, or tensors on `device`."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1179,6 +1220,8 @@ def _train_batch(rng, batch, opt, device=None):
             + 0.2 * rng.rand(batch, H, W, 3).astype("float32"))
     frames = {0: base, -1: np.roll(base, (2, 5), (1, 2)),
               1: np.roll(base, (-2, -5), (1, 2))}
+    if opt.dyn_cv:
+        frames = {f: _occlude(rng, img) if f else img for f, img in frames.items()}
     out = {}
     for f, img in frames.items():
         out[("color", f, 0)] = out[("color_aug", f, 0)] = np.ascontiguousarray(img)
@@ -1256,19 +1299,44 @@ def train_parity(sd, dev, opt=TRAIN_B, tag="parity"):
 def _expected_launches(opt):
     """Launches of each kernel in one training step of the configuration:
     kernel D once per branch forward and backward; kernel A forward and dx
-    as `_train_lk_calls`; the plane sweep once per lookup frame."""
+    as `_train_lk_calls`; the plane sweep once per lookup frame, or never
+    under --dyn_cv (the DynamicDepth volume takes its place)."""
     calls = _train_lk_calls(opt)
     return {"warp_fwd": 2, "warp_bwd": 2, "ffn_fused": 0,
             "lk_dwconv": sum(c[4] for c in calls),
             "lk_dwconv_dx": sum(c[5] for c in calls),
-            "plane_sweep": len(opt.matching_ids) - 1}
+            "plane_sweep": 0 if opt.dyn_cv else len(opt.matching_ids) - 1}
+
+
+class _DynCalls:
+    """Counts the calls of the DynamicDepth volume
+    (`ops.cost_volume.plane_sweep_cost_volume_dyn`, which the matching
+    encoder calls through its module) while the context is open."""
+
+    def __enter__(self):
+        from ppeadepth_tpu_torch.ops import cost_volume as CV
+
+        self.n, self._fn = 0, CV.plane_sweep_cost_volume_dyn
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._fn(*a, **kw)
+
+        CV.plane_sweep_cost_volume_dyn = counted
+        return self
+
+    def __exit__(self, *exc):
+        from ppeadepth_tpu_torch.ops import cost_volume as CV
+
+        CV.plane_sweep_cost_volume_dyn = self._fn
 
 
 def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
     """The training phase of `opt`: bf16 compute, B=TRAIN_BATCH, on `dev`
-    (stage 1 at 640x192; stage 2 at 512x192 with the decoder adapters):
-    one warm-up step and TRAIN_STEPS timed ones, with the launch counts,
-    invariants and depth-bin EMA checked after each. Stage 2 also shows
+    (stage 1 at 640x192; stage 2 at 512x192 with the decoder adapters, and
+    under --dyn_cv): one warm-up step and TRAIN_STEPS timed ones, with the
+    launch counts (and the dyn volume's calls), invariants and depth-bin
+    EMA checked after each. Stage 2 also shows
     the dc freezing: the decoder trunks and heads frozen, and every
     parameter of each decoder's `adapter` and `deconv_adpt` moved."""
     import numpy as np
@@ -1296,40 +1364,45 @@ def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
     expected = _expected_launches(opt)
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + TRAIN_STEPS):
-        old_bins = (state.min_depth_bin.item(), state.max_depth_bin.item())
-        kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        counts = dict(kernels.launch_counts)
-        m = {k: v.item() for k, v in metrics.items()}
-        print(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: loss {m['loss']:.6f} "
-              f"(mono {m['mono/loss']:.6f}, multi {m['multi/loss']:.6f}, "
-              f"consistency {m['multi/consistency']:.6f}), {dt:.3f} ms host wall, "
-              f"launches {counts}")
-        if counts != expected:
-            raise AssertionError(f"{tag}: launches {counts}, expected {expected}")
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"{tag}: non-finite metrics {m}")
-        for n in trainable:
-            g = named[n].grad
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"{tag}: non-finite gradient of {n}")
-            if g.abs().max() > 0:
-                had_grad.add(n)
-        _, d = disp_to_depth(depths[-1], opt.min_depth, opt.max_depth)
-        dmin = max(opt.min_depth, d.amin(dim=(1, 2, 3)).mean().item() * 0.9)
-        dmax = d.amax(dim=(1, 2, 3)).mean().item() * 1.1
-        want = (old_bins[0] * 0.99 + dmin * 0.01, old_bins[1] * 0.99 + dmax * 0.01)
-        got = (m["depth_bins/min"], m["depth_bins/max"])
-        if not np.allclose(got, want, rtol=1e-5):
-            raise AssertionError(f"{tag}: depth bins {got}, EMA gives {want}")
-        if i:
-            times.append(dt)
-            losses.append(m["loss"])
+    with _DynCalls() as dyn:
+        for i in range(1 + TRAIN_STEPS):
+            old_bins = (state.min_depth_bin.item(), state.max_depth_bin.item())
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_dyn = dyn.n
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = dict(kernels.launch_counts)
+            m = {k: v.item() for k, v in metrics.items()}
+            print(f"{tag} step {i}{' (warm-up)' if i == 0 else ''}: loss {m['loss']:.6f} "
+                  f"(mono {m['mono/loss']:.6f}, multi {m['multi/loss']:.6f}, "
+                  f"consistency {m['multi/consistency']:.6f}), {dt:.3f} ms host wall, "
+                  f"launches {counts}")
+            if counts != expected:
+                raise AssertionError(f"{tag}: launches {counts}, expected {expected}")
+            if dyn.n - n_dyn != int(opt.dyn_cv):
+                raise AssertionError(f"{tag}: {dyn.n - n_dyn} calls of the "
+                                     f"dyn volume, expected {int(opt.dyn_cv)}")
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{tag}: non-finite metrics {m}")
+            for n in trainable:
+                g = named[n].grad
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{tag}: non-finite gradient of {n}")
+                if g.abs().max() > 0:
+                    had_grad.add(n)
+            _, d = disp_to_depth(depths[-1], opt.min_depth, opt.max_depth)
+            dmin = max(opt.min_depth, d.amin(dim=(1, 2, 3)).mean().item() * 0.9)
+            dmax = d.amax(dim=(1, 2, 3)).mean().item() * 1.1
+            want = (old_bins[0] * 0.99 + dmin * 0.01, old_bins[1] * 0.99 + dmax * 0.01)
+            got = (m["depth_bins/min"], m["depth_bins/max"])
+            if not np.allclose(got, want, rtol=1e-5):
+                raise AssertionError(f"{tag}: depth bins {got}, EMA gives {want}")
+            if i:
+                times.append(dt)
+                losses.append(m["loss"])
     hook.remove()
     peak = torch.cuda.max_memory_allocated()
     frozen_changed = [n for n in named if n not in trainable
@@ -1405,24 +1478,25 @@ def _eval_lk_calls(opt, post_process=True, teacher=True):
     return calls
 
 
-def check_lk_pallas(dev, rng):
+def check_lk_pallas(dev, rng, opt=SHIPPED_B, n_test=N_TEST):
     """Kernel #3 (the Pallas `depthwise_conv2d_pallas`, kernel A here)
     against its plain version (cuDNN, TF32 off) at every conv shape of the
-    eval forward at 640x192 under --lk_backend pallas: the stem's k=3 on
-    96x320 and each stage's large k and k=5, in f32 (the eval's compute)
-    and bf16 (validation under bf16 compute), at the eval batch and at the
-    eval run's partial last batch. Times and bounds are per f32 eval batch
-    of EVAL_BATCH (the sum over its calls); the library yardstick is the
-    plain version, one cuDNN call."""
+    eval forward of `opt` under --lk_backend pallas (KITTI 640x192: the
+    stem's k=3 on 96x320 and each stage's large k and k=5; DDAD 320x480:
+    stages of 80x120 down to 10x15), in f32 (the eval's compute) and bf16
+    (validation under bf16 compute), at the eval batch and at the partial
+    last batch of an eval of `n_test` images. Times and bounds are per f32
+    eval batch of EVAL_BATCH (the sum over its calls); the library
+    yardstick is the plain version, one cuDNN call."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
 
     worst, tot, bound = 0.0, {"ms": 0.0, "plain_ms": 0.0}, _Bound()
-    for C, H, W, k, calls in _eval_lk_calls(SHIPPED_B):
+    for C, H, W, k, calls in _eval_lk_calls(opt):
         for dtype in (torch.float32, torch.bfloat16):
             tol = LK3_F32_REL_TOL if dtype == torch.float32 else A_REL_TOL
-            for B in (EVAL_BATCH, N_TEST % EVAL_BATCH):
+            for B in (EVAL_BATCH, n_test % EVAL_BATCH):
                 def t(shape, scale):
                     return torch.from_numpy((rng.randn(*shape) * scale).astype(
                         "float32")).to(dev).to(dtype)
@@ -1454,8 +1528,8 @@ def check_lk_pallas(dev, rng):
                     tot["ms"] += kk * calls
                     tot["plain_ms"] += p * calls
                     bound.add(bnd, by, calls)
-    print(f"kernel #3 per f32 eval batch of {EVAL_BATCH} "
-          f"({sum(c[4] for c in _eval_lk_calls(SHIPPED_B))} calls): "
+    print(f"kernel #3 per f32 eval batch of {EVAL_BATCH} at {opt.width}x"
+          f"{opt.height} ({sum(c[4] for c in _eval_lk_calls(opt))} calls): "
           f"{tot['ms']:.3f} ms, plain (cuDNN) {tot['plain_ms']:.3f} ms, bound "
           f"{bound.ms:.3f} ms")
     return dict(max_abs_err=worst, bound_ms=bound.ms, bound_by=bound.by,
@@ -1812,6 +1886,46 @@ def _cityscapes_set(root, rng):
             fh.write("\n".join(f"{CS_CITY} {f}" for f in items) + "\n")
 
 
+def _ddad_set(root, rng):
+    """A synthetic DDAD set under `root`/ddad in the layout
+    `data.ddad.DDADNpzDataset` reads (tools/export_ddad.py writes it):
+    N_DDAD samples of 1936x1216 jpgs, frame 0 and frame -1 of a smooth
+    random texture panning 6 px a sample and 4 px a frame
+    (rgb/{idx}_{frame}.jpg), the native 3x3 intrinsics (calib/{idx}.npy),
+    lidar-like GT of frame 0 (depth/{idx}.npy: smooth depths of 5-150 m,
+    beyond KITTI's 80 m clamp, at ~5 % of the pixels) and val_index.txt."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    H, W = DDAD_RAW
+    root = os.path.join(root, "ddad")
+    for d in ("rgb", "calib", "depth"):
+        os.makedirs(os.path.join(root, d))
+    base = _texture(rng, H, W + 6 * N_DDAD + 4)
+    K = np.array([[2000.0, 0, W / 2], [0, 2000.0, H / 2], [0, 0, 1]], "float32")
+    yy, xx = np.mgrid[0:H, 0:W] / np.array([H, W], "float32")[:, None, None]
+    for i in range(N_DDAD):
+        for frame, off in ((0, 4), (-1, 0)):
+            x0 = 6 * i + off
+            Image.fromarray(base[:, x0:x0 + W].astype(np.uint8)).save(
+                os.path.join(root, "rgb", f"{i}_{frame}.jpg"), quality=92)
+        np.save(os.path.join(root, "calib", f"{i}.npy"), K)
+        depth = 5 + 145 * (0.5 + 0.5 * np.sin(3 * xx + i) * np.cos(2 * yy))
+        np.save(os.path.join(root, "depth", f"{i}.npy"),
+                np.where(rng.rand(H, W) < 0.05, depth, 0).astype("float32"))
+    with open(os.path.join(root, "val_index.txt"), "w") as fh:
+        fh.write("\n".join(str(i) for i in range(N_DDAD)) + "\n")
+
+
+def _ddad_args(extra=()):
+    """The flags of `python -m ppeadepth_tpu_torch.evaluate_ddad` for the
+    shipped network on the synthetic DDAD set (the forced 320x480)."""
+    return ["--adapter", "--rep_size", "b", "--batch_size", str(EVAL_BATCH),
+            "--data_path", "ddad", "--num_workers", "8", *extra]
+
+
 def _cs_cli_args(extra=()):
     """The CLI flags of stage 2 on the synthetic CityScapes set: the
     --train_cs preset (192x512, the cityscapes_preprocessed split, the
@@ -1919,27 +2033,178 @@ def serve_stage2(folder):
                                                         "stage-2 student")}
 
 
+def _occlude(rng, img):
+    """A copy of the images `img` [B, H, W, 3] with three black rectangles
+    of a quarter of the height and width each: the occlusion that DOMD
+    leaves and the --dyn_cv in-fill reads (channel sum below 0.15)."""
+    img = img.copy()
+    B, H, W, _ = img.shape
+    for b in range(B):
+        for _ in range(3):
+            y0, x0 = rng.randint(0, H - H // 4), rng.randint(0, W - W // 4)
+            img[b, y0:y0 + H // 4, x0:x0 + W // 4] = 0
+    return img
+
+
+def serve_dyn(folder):
+    """Serving under --dyn_cv (DYN_B: the stage-2 network with the
+    DynamicDepth volume) from the stage-2 CLI's final checkpoint `folder`:
+    a merged bf16 session on the card and an f32 session on the CPU; one
+    student request of B=8 at 512x192 whose lookup frames carry black
+    patches, against the CPU f32 forward under DISP_*, kernel C never
+    launched and the dyn volume once."""
+    import numpy as np
+
+    from ppeadepth_tpu_torch.serve import InferenceSession
+
+    opt = DYN_B
+    sess = InferenceSession(opt, checkpoint=folder, device="cuda", dtype="bfloat16")
+    cpu = InferenceSession(opt, checkpoint=folder, device="cpu", dtype="float32")
+    rng = np.random.RandomState(SEED + 10)
+    img = rng.rand(BATCH, opt.height, opt.width, 3).astype("float32")
+    requests = [(img, _occlude(rng, np.roll(img, (2, 5), (1, 2))))]
+    return {"predict_depth_multi_dyn": serve_student(sess, cpu, opt, requests,
+                                                     "dyn student")}
+
+
+def stage2_bf16_probe(sd2):
+    """A measurement, not a check: bf16 serving of the stage-2 weights
+    `sd2`, whose decoder adapters are drawn non-zero (`_stage2_state_dict`),
+    against the CPU f32 forward, for the student with and without
+    --dyn_cv, and under --dyn_cv with those adapters zeroed, on image 0 of
+    one B=8 request at 512x192 with black lookup patches. Prints
+    |d disp| beside DISP_* (PERF.md section 7: with drawn adapters both
+    paths exceed DISP_MEAN_TOL). One check: the dyn student in f32 on the
+    card against the CPU's, max |d disp| <= EVAL_CPU_REL_TOL."""
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.serve import InferenceSession
+
+    zeroed = {k: torch.zeros_like(v) if k.split(".")[0] in ("depth", "mono_depth")
+              and k.endswith("weight") and ("D_fc2" in k or "deconv_adpt" in k)
+              else v for k, v in sd2.items()}
+    rng = np.random.RandomState(SEED + 10)
+    img = rng.rand(BATCH, STAGE2_B.height, STAGE2_B.width, 3).astype("float32")
+    occluded = _occlude(rng, np.roll(img, (2, 5), (1, 2)))
+    K, invK = _kitti_K(STAGE2_B.height // 4, STAGE2_B.width // 4, BATCH)
+    bins = dict(min_depth_bin=DEPTH_BINS[0], max_depth_bin=DEPTH_BINS[1])
+    for tag, opt, weights, lk, dtype in (
+            ("stage 2, drawn adapters", STAGE2_B, sd2, occluded, "bfloat16"),
+            ("dyn, drawn adapters", DYN_B, sd2, occluded, "bfloat16"),
+            ("dyn, adapters zeroed", DYN_B, zeroed, occluded, "bfloat16"),
+            ("dyn, drawn adapters, f32 on the card", DYN_B, sd2, occluded, "float32")):
+        card = InferenceSession(opt, weights, device="cuda", dtype=dtype, **bins)
+        cpu = InferenceSession(opt, weights, device="cpu", dtype="float32", **bins)
+        got = card.predict_depth_multi(img, lk, K, invK)[:1]
+        ref = cpu.predict_depth_multi(img[:1], lk[:1], K[:1], invK[:1])
+        lo, hi = 1.0 / opt.max_depth, 1.0 / opt.min_depth
+        dd = np.abs((1.0 / got - 1.0 / ref) / (hi - lo))
+        if dtype == "float32":
+            print(f"stage-2 f32 probe, {tag}: |d disp| vs CPU f32 mean "
+                  f"{dd.mean():.3e} max {dd.max():.3e} (tol {EVAL_CPU_REL_TOL:g})")
+            if not dd.max() <= EVAL_CPU_REL_TOL:
+                raise AssertionError(f"{tag}: the card disagrees with the CPU")
+        else:
+            print(f"stage-2 bf16 probe, {tag}: |d disp| vs CPU f32 mean "
+                  f"{dd.mean():.3e} max {dd.max():.3e} (DISP_* {DISP_MEAN_TOL:g} "
+                  f"/ {DISP_MAX_TOL:g}; a measurement, not a check)")
+        del card, cpu
+
+
+def check_dyn_volume(dev, rng, opt=DYN_B):
+    """The DynamicDepth volume (`--dyn_cv`; plain torch, as JAX keeps it on
+    lax, so no kernel) at the stage-2 step's shapes: B=TRAIN_BATCH, C=128,
+    48x128, 96 bins, the pool in-fill from 192x512 lookup images with black
+    patches, the last item matching-augmented (in-fill gated off). On the
+    card against the same function on the CPU (first 2 items) off the
+    edge-mask boundaries (DYN_REL_TOL); the in-fill changed the gated-on
+    items and not the gated-off one; its time per call (CUDA events) and
+    the peak memory of one call beyond its inputs."""
+    import torch
+
+    from ppeadepth_tpu_torch.ops import cost_volume as CV
+
+    B = TRAIN_BATCH
+    C, H, W, _, _ = _stage_shapes(opt)[0]
+    D = opt.num_depth_bins
+    K, invK = (torch.from_numpy(a).to(dev) for a in _kitti_K(H, W, B))
+    T = torch.from_numpy(_pose_4x4(rng, B)).to(dev)
+    bins = CV.compute_depth_bins(*DEPTH_BINS, D, device=dev)
+    _, _, _, near, samples = _edge_geometry(K, invK, T, bins, H, W)
+    T = T[:, None]
+    cur = _sweep_feats(dev, rng, B, C, H, W, torch.float32)
+    lk = _sweep_feats(dev, rng, B, C, H, W, torch.float32)[:, None]
+    images = torch.from_numpy(_occlude(rng, rng.rand(
+        B, opt.height, opt.width, 3).astype("float32"))).to(dev).permute(
+            0, 3, 1, 2)[:, None]
+    aug = torch.zeros(B, 1, 1, 1, device=dev)
+    aug[-1] = 1
+
+    def run(n=B, device=dev, **kw):
+        args = (cur, lk, T, K, invK, bins, images, aug)
+        kw = dict(dict(cv_min=opt.cv_min, set_1=opt.cv_set_1, pool=opt.cv_pool,
+                       pool_r=opt.cv_pool_radius, pool_th=opt.cv_pool_th), **kw)
+        with torch.no_grad():
+            return CV.plane_sweep_cost_volume_dyn(
+                *(a[:n].to(device) if a.dim() > 1 else a.to(device)
+                  for a in args), **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost, missing = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    plain, _ = run(pool=False, set_1=False)
+    filled = [(cost[b] != plain[b]).any().item() for b in range(B)]
+    ref, ref_missing = run(2, "cpu")
+    # a pixel with a sample near an edge-mask boundary in any bin
+    near = near[:2].any(1, keepdim=True).expand(-1, D, -1, -1).cpu()
+    diff = (cost[:2].cpu() - ref).abs()
+    peak_ref = ref.abs().max().item()
+    err = diff[~near].max().item()
+    print(f"dyn volume [{B},{H},{W},{C}] D={D} f32, pool r={opt.cv_pool_radius}: "
+          f"card vs CPU (2 items) max|d| off the mask boundaries {err:.3e} "
+          f"of max|ref| {peak_ref:.3e} (tol {DYN_REL_TOL:g} x max|ref|; "
+          f"{near.float().mean().item():.2e} of the entries left out); missing "
+          f"share {ref_missing.mean().item():.4f}; in-fill changed items "
+          f"{[b for b in range(B) if filled[b]]} (item {B - 1} augmented)")
+    if not (err <= DYN_REL_TOL * peak_ref and torch.equal(
+            missing[:2].cpu()[~near], ref_missing[~near])):
+        raise AssertionError("dyn volume: the card disagrees with the CPU")
+    if filled[-1] or not all(filled[:-1]):
+        raise AssertionError(f"dyn volume: the in-fill changed items {filled}")
+    (ms,) = _time_turns([run], 3)
+    print(f"dyn volume: {ms:.3f} ms per call (CUDA events, B={B}), peak "
+          f"device memory beyond its inputs {peak} bytes ({peak / 2**30:.3f} "
+          f"GiB); {samples} observed samples")
+    return dict(ms=ms, peak_bytes=peak, max_abs_err=err)
+
+
 def _rel(a, b):
     import numpy as np
 
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-def eval_cli(folder, profile, stage2=False):
+def eval_cli(folder, profile, kind="kitti"):
     """`python -m ppeadepth_tpu_torch.train --eval --lk_backend pallas` on
     the final checkpoint, f32, with --eval_teacher and --post_process, then
     the same under --lk_backend lax; the launches of each run (read with
     the counts set to 0 just before it) are exact, their metrics finite,
     and the pallas run's disparities agree with the lax run's and, on the
-    first two test images, with the port's CPU eval. On the synthetic
-    KITTI set, or with `stage2` `--train_cs --dc --eval` (--eval_split
-    cityscapes) on the cityscapes_eval layout. With `profile`, a
+    first two test images, with the port's CPU eval. `kind`: "kitti", the
+    synthetic KITTI set; "cityscapes", `--train_cs --dc --eval`
+    (--eval_split cityscapes) on the cityscapes_eval layout; "ddad",
+    `python -m ppeadepth_tpu_torch.evaluate_ddad` on the synthetic DDAD set
+    at the forced 320x480 with its 200 m clamp. With `profile`, a
     device-time breakdown of the pallas eval step on the first batch."""
     import numpy as np
     import torch
 
     from ppeadepth_tpu_torch import data as D
-    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch import evaluate_ddad, kernels
     from ppeadepth_tpu_torch.ckpt import io as ckpt_io
     from ppeadepth_tpu_torch.eval import evaluator
     from ppeadepth_tpu_torch.models import RepDepth
@@ -1947,14 +2212,24 @@ def eval_cli(folder, profile, stage2=False):
     from ppeadepth_tpu_torch.train import __main__ as cli
     from ppeadepth_tpu_torch.train.trainer import readlines
 
-    extra = ["--eval", "--load_weights_folder", folder, "--eval_teacher",
-             "--post_process"]
-    if stage2:
-        base, size, n_test, tag = _cs_cli_args(extra), STAGE2_B, N_CS_TEST, "eval CLI cityscapes"
-        ds_name, data_path, split = "cityscapes_eval", "cs_eval", "cityscapes_preprocessed"
+    extra = ["--load_weights_folder", folder, "--eval_teacher", "--post_process"]
+    entry, module, make_opt = cli.main, "train --eval", parse_args
+    if kind == "cityscapes":
+        base, size, n_test, tag = (_cs_cli_args(["--eval", *extra]), STAGE2_B,
+                                   N_CS_TEST, "eval CLI cityscapes")
+        ds_name, data_path = "cityscapes_eval", "cs_eval"
+        index = "splits/cityscapes_preprocessed/test_files.txt"
+    elif kind == "ddad":
+        base, size, n_test, tag = _ddad_args(extra), DDAD_B, N_DDAD, "eval DDAD"
+        ds_name, data_path, index = "ddad", "ddad", "ddad/val_index.txt"
+        entry, module = evaluate_ddad.main, "evaluate_ddad"
+
+        def make_opt(args):
+            return evaluate_ddad.eval_config(parse_args(args))
     else:
-        base, size, n_test, tag = _cli_args(extra), SHIPPED_B, N_TEST, "eval CLI"
-        ds_name, data_path, split = "kitti", "kitti", "smoke"
+        base, size, n_test, tag = (_cli_args(["--eval", *extra]), SHIPPED_B,
+                                   N_TEST, "eval CLI")
+        ds_name, data_path, index = "kitti", "kitti", "splits/smoke/test_files.txt"
     batches = -(-n_test // EVAL_BATCH)
     captured, runs = [], {}
     predict = evaluator.predict_disps
@@ -1969,10 +2244,10 @@ def eval_cli(folder, profile, stage2=False):
     try:
         for backend in ("pallas", "lax"):
             args = base + ["--lk_backend", backend]
-            print(f"{tag}: python -m ppeadepth_tpu_torch.train {' '.join(args)}")
+            print(f"{tag}: python -m ppeadepth_tpu_torch.{module} {' '.join(args)}")
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            errors, mono = cli.main(args)
+            errors, mono = entry(args)
             wall = time.perf_counter() - t0
             counts = dict(kernels.launch_counts)
             calls = _eval_lk_calls(size)[(backend == "lax"):]
@@ -2002,10 +2277,12 @@ def eval_cli(folder, profile, stage2=False):
     if not (disp_err <= EVAL_LAX_REL_TOL and metric_err <= EVAL_METRIC_REL_TOL):
         raise AssertionError(f"{tag}: pallas and lax disagree")
 
-    opt = parse_args(base + ["--lk_backend", "pallas"]).with_mode_presets()
+    opt = make_opt(base + ["--lk_backend", "pallas"]).with_mode_presets()
+    if (opt.height, opt.width) != (size.height, size.width):
+        raise AssertionError(f"{tag}: evaluated at {opt.width}x{opt.height}")
     model = RepDepth(opt)
     track = ckpt_io.load_model(folder, model)
-    files = readlines(f"splits/{split}/test_files.txt")
+    files = readlines(index)
     if profile:
         ds = D.DATASETS[ds_name](data_path, files[:EVAL_BATCH], opt.height,
                                  opt.width, [0, -1], 4)
@@ -2033,6 +2310,65 @@ def eval_cli(folder, profile, stage2=False):
           f"{d_c.max():.4f}]")
     if not cpu_err <= EVAL_CPU_REL_TOL:
         raise AssertionError(f"{tag}: the card's disparities disagree with the CPU's")
+    return counts
+
+
+def ablation_cli(folder):
+    """The per-block adapter ablation (`python -m
+    ppeadepth_tpu_torch.evaluate_depth_layer`, through its
+    `make_eval_fn` and `eval.ablation.run_block_ablation`) of the KITTI
+    run's final checkpoint on the synthetic KITTI set, f32, for the first
+    ABLATED adapter blocks of each encoder: the eval of the unablated
+    weights reproduces `--eval` of the same checkpoint (EVAL_METRIC_REL_TOL
+    per metric); gating a student (`encoder`) block changes the student's
+    metrics, a teacher (`mono_encoder`) one leaves them as they were (the
+    eval scores the student); repl.txt holds one line per block; the
+    launches are those of the student's eval forward per batch and eval.
+    Returns the run's counts."""
+    import numpy as np
+
+    from ppeadepth_tpu_torch import evaluate_depth_layer, kernels
+    from ppeadepth_tpu_torch.eval import ablation
+    from ppeadepth_tpu_torch.options import parse_args
+    from ppeadepth_tpu_torch.train import __main__ as cli
+
+    args = _cli_args(["--load_weights_folder", folder])
+    print("ablation: python -m ppeadepth_tpu_torch.evaluate_depth_layer "
+          + " ".join(args) + f" (the first {ABLATED} blocks of each encoder)")
+    eval_cli_errors, _ = cli.main(["--eval", *args])
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    eval_fn, sd = evaluate_depth_layer.make_eval_fn(parse_args(args))
+    blocks = [b for sub in ("encoder", "mono_encoder")
+              for b in ablation.adapter_block_paths(sd, sub)[:ABLATED]]
+    base = eval_fn(sd)
+    results = ablation.run_block_ablation(eval_fn, sd, out_path="repl.txt",
+                                          blocks=blocks)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    with open("repl.txt") as fh:
+        lines = fh.read().splitlines()
+    base_err = float(np.max(np.abs(base - eval_cli_errors)
+                            / np.abs(eval_cli_errors)))
+    print(f"ablation: unablated eval {base.tolist()}, --eval "
+          f"{eval_cli_errors.tolist()}: max rel {base_err:.3e} (tol "
+          f"{EVAL_METRIC_REL_TOL:g}); repl.txt {lines}; {1 + len(blocks)} "
+          f"evals in {wall:.2f} s")
+    if not base_err <= EVAL_METRIC_REL_TOL:
+        raise AssertionError("ablation: the unablated eval is not --eval's")
+    if [ln.split()[0] for ln in lines] != blocks:
+        raise AssertionError(f"ablation: repl.txt names {lines}, not {blocks}")
+    for block, errors in results:
+        moved = not np.array_equal(errors, base)
+        if moved != block.startswith("encoder.") or not np.isfinite(errors).all():
+            raise AssertionError(f"ablation: {block} gives {errors.tolist()}, "
+                                 f"unablated {base.tolist()}")
+    n_batches = (1 + len(blocks)) * -(-N_TEST // EVAL_BATCH)
+    per_batch = sum(c[4] for c in _eval_lk_calls(SHIPPED_B, False, False)[1:])
+    _check_counts(counts, {"lk_dwconv": n_batches * per_batch,
+                           "plane_sweep": n_batches, "ffn_fused": 0,
+                           "lk_dwconv_dx": 0, "warp_fwd": 0, "warp_bwd": 0},
+                  f"ablation: {1 + len(blocks)} evals of {N_TEST} images")
     return counts
 
 
@@ -2186,6 +2522,10 @@ def main():
     lk2_cs = check_lk_train(dev, rng, STAGE2_B)
     c_cs = check_plane_sweep(dev, rng, TRAIN_BATCH, STAGE2_B)
     d_cs = check_warp(dev, rng, STAGE2_B)
+    # the DDAD eval's: #3 and C (f32) at 320x480; and the --dyn_cv volume
+    lk3_ddad = check_lk_pallas(dev, rng, DDAD_B, N_DDAD)
+    c_ddad = check_plane_sweep(dev, rng, EVAL_BATCH, DDAD_B, (torch.float32,))
+    check_dyn_volume(dev, rng)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -2221,6 +2561,10 @@ def main():
     train_parity(sd2, dev, STAGE2_B, "stage-2 parity")
     by_path["train_step_stage2"] = train_steps(sd2, dev, profile, STAGE2_B,
                                                "stage2")
+    # --dyn_cv: the stage-2 network with the DynamicDepth volume
+    train_parity(sd2, dev, DYN_B, "dyn parity")
+    by_path["train_step_dyn"] = train_steps(sd2, dev, profile, DYN_B, "dyn")
+    stage2_bf16_probe(sd2)
     del sd2
 
     # the CLI: training with validation and checkpoints, resume, and --eval,
@@ -2230,7 +2574,8 @@ def main():
         t0 = time.perf_counter()
         _kitti_set(root, np.random.RandomState(SEED + 5))
         _cityscapes_set(root, np.random.RandomState(SEED + 8))
-        print(f"synthetic KITTI and CityScapes sets written in "
+        _ddad_set(root, np.random.RandomState(SEED + 9))
+        print(f"synthetic KITTI, CityScapes and DDAD sets written in "
               f"{time.perf_counter() - t0:.2f} s")
         os.chdir(root)
         try:
@@ -2238,11 +2583,14 @@ def main():
             check_resume(trainer, final)
             del trainer
             by_path["eval_pallas"] = eval_cli(final, profile)
+            by_path["ablation"] = ablation_cli(final)
+            by_path["eval_ddad"] = eval_cli(final, False, "ddad")
             # stage 2 from the KITTI run's final checkpoint, its CityScapes
             # eval, and serving its checkpoint
             cs_final, by_path["train_cli_stage2"] = train_cli_stage2(final)
-            by_path["eval_cityscapes"] = eval_cli(cs_final, False, stage2=True)
+            by_path["eval_cityscapes"] = eval_cli(cs_final, False, "cityscapes")
             by_path.update(serve_stage2(cs_final))
+            by_path.update(serve_dyn(cs_final))
         finally:
             os.chdir(cwd)
 
@@ -2282,7 +2630,15 @@ def main():
             ("warp_fwd (stage 2)", "warp_fwd", "warp_border.cu",
              "warp_mxu.py:269", d_cs_entry,
              "call ([24,192,512,3], one per branch; backward_* the "
-             "backward's)", "train_step_stage2")):
+             "backward's)", "train_step_stage2"),
+            ("lk_dwconv (kernel #3, DDAD)", "lk_dwconv", "lk_dwconv.cu",
+             "lk_conv_pallas.py:70", lk3_ddad,
+             f"f32 eval batch of 12 at 320x480 under --lk_backend pallas "
+             f"({sum(c[4] for c in _eval_lk_calls(DDAD_B))} calls of kernel A)",
+             "eval_ddad"),
+            ("plane_sweep (DDAD)", "plane_sweep", "plane_sweep.cu",
+             "cost_volume_mxu.py:149", c_ddad,
+             "call ([12,80,120,128] f32, two per DDAD eval batch)", "eval_ddad")):
         entries.append({
             "name": entry, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",

@@ -59,6 +59,14 @@ def load_model(folder: str, model) -> Dict:
     folder's track.json ({} when absent)."""
     sd = torch.load(os.path.join(folder, "model.pth"), map_location="cpu",
                     weights_only=True)
+    merge_state_dict(model, sd)
+    return read_track(folder)
+
+
+def merge_state_dict(model, sd: Dict[str, torch.Tensor]):
+    """Load every entry of `sd` whose name and shape match `model`'s (the
+    rest of the model keeps its values); report the missing and unexpected
+    keys. Returns (loaded, missing, unexpected) name lists."""
     own = model.state_dict()
     fits = {k: v for k, v in sd.items() if k in own and v.shape == own[k].shape}
     missing = [k for k in own if k not in fits]
@@ -67,7 +75,7 @@ def load_model(folder: str, model) -> Dict:
     if missing or unexpected:
         print(f"[ckpt] model: {len(missing)} missing, {len(unexpected)} "
               f"unexpected keys (strict=False merge)")
-    return read_track(folder)
+    return list(fits), missing, unexpected
 
 
 def load_adam(folder: str, optimizer, scheduler) -> bool:

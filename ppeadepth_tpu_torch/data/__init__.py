@@ -1,13 +1,13 @@
-"""The port's data (JAX counterpart: ppeadepth_tpu/data): KITTI and
-CityScapes datasets, the loader and the device prefetch.
+"""The port's data (JAX counterpart: ppeadepth_tpu/data): KITTI,
+CityScapes and DDAD datasets, the loader and the device prefetch.
 
-`DATASETS` maps `--dataset` names to dataset classes. The DDAD dataset
-belongs to DDAD evaluation, which is not ported yet: its entry raises."""
+`DATASETS` maps `--dataset` names to dataset classes."""
 
 from .cityscapes import (  # noqa: F401
     CityscapesEvalDataset,
     CityscapesPreprocessedDataset,
 )
+from .ddad import DDADNpzDataset  # noqa: F401
 from .kitti import (  # noqa: F401
     KITTIDataset,
     KITTIDepthDataset,
@@ -17,19 +17,10 @@ from .kitti import (  # noqa: F401
 from .loader import DataLoader, device_prefetch  # noqa: F401
 from .mono_dataset import MonoDataset  # noqa: F401
 
-
-def _not_ported(name: str, slice_name: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name} dataset is not ported yet; it comes with the "
-            f"{slice_name} slice")
-    return make
-
-
 DATASETS = {
     "kitti": KITTIRAWDataset,
     "kitti_odom": KITTIOdomDataset,
     "cityscapes_preprocessed": CityscapesPreprocessedDataset,
     "cityscapes_eval": CityscapesEvalDataset,
-    "ddad": _not_ported("ddad", "DDAD evaluation (--ddad)"),
+    "ddad": DDADNpzDataset,
 }

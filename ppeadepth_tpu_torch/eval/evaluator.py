@@ -90,8 +90,8 @@ def load_gt_depths(opt, num: Optional[int] = None, splits_dir="./splits"):
     if not os.path.exists(gt_path):
         raise FileNotFoundError(
             f"{gt_path} not found — export it first with "
-            f"`python -m ppeadepth_tpu.export_gt_depth --data_path <kitti> "
-            f"--split {opt.eval_split}`")
+            f"`python -m ppeadepth_tpu_torch.export_gt_depth --data_path "
+            f"<kitti> --split {opt.eval_split} --splits_dir {splits_dir}`")
     return np.load(gt_path, fix_imports=True, encoding="latin1",
                    allow_pickle=True)["data"]
 

@@ -13,8 +13,11 @@ spliced in after stage 0 (JAX counterpart: models/matching_encoder.py
 
 In training the lookup features are gradient-free (computed under
 `torch.no_grad()`, BN statistics still updated, replk_matching.py:265-281)
-and the cost volume is built on detached f32 features. The DynamicDepth
-variant of the cost volume (`dyn`) is not ported.
+and the cost volume is built on detached f32 features. Under `dyn`
+(`--dyn_cv`) the DynamicDepth volume (`ops.cost_volume.
+plane_sweep_cost_volume_dyn`, plain torch as JAX keeps it on lax) takes
+kernel C's place: it fills in the occluded entries of the warped features
+from the full-resolution lookup images.
 """
 
 from __future__ import annotations
@@ -51,11 +54,17 @@ class RepLKMatching(nn.Module):
                                         generator)
 
     def forward(self, current_image, lookup_images, poses, K, invK,
-                min_depth_bin, max_depth_bin, generator=None):
+                min_depth_bin, max_depth_bin, generator=None, aug_mask=None,
+                dyn: bool = False, cv_min: bool = False,
+                cv_set_1: bool = False, cv_pool: bool = True,
+                cv_pool_radius: int = 1, cv_pool_th: float = 0.7):
         """current_image: [B, 3, H, W]; lookup_images: [B, F, 3, H, W];
         poses: [B, F, 4, 4] current->lookup; K, invK: [B, 4, 4] at 1/4
         (matching) scale; min/max_depth_bin: scalars or 0-d tensors;
-        generator: draws the drop-path masks in training.
+        generator: draws the drop-path masks in training. `dyn` and the
+        `cv_*` options select and configure the DynamicDepth volume;
+        aug_mask [B, 1, 1, 1] (zeros when None) gates its in-fill off for
+        matching-augmented items.
 
         Returns (features[4], lowest_cost [B, H/4, W/4],
         confidence [B, H/4, W/4])."""
@@ -69,8 +78,17 @@ class RepLKMatching(nn.Module):
                 bins = CV.compute_depth_bins(
                     min_depth_bin, max_depth_bin, self.num_depth_bins,
                     self.depth_binning, device=cur.device)
-                cost, missing = CV.plane_sweep_cost_volume(
-                    cur.detach(), lk, poses.detach(), K, invK, bins)
+                if dyn:
+                    if aug_mask is None:
+                        aug_mask = torch.zeros((B, 1, 1, 1), device=cur.device)
+                    cost, missing = CV.plane_sweep_cost_volume_dyn(
+                        cur.detach(), lk, poses.detach(), K, invK, bins,
+                        lookup_images.detach().float(), aug_mask.detach(),
+                        cv_min=cv_min, set_1=cv_set_1, pool=cv_pool,
+                        pool_r=cv_pool_radius, pool_th=cv_pool_th)
+                else:
+                    cost, missing = CV.plane_sweep_cost_volume(
+                        cur.detach(), lk, poses.detach(), K, invK, bins)
                 conf = CV.confidence_mask(cost, missing)
                 lowest_cost = CV.lowest_cost_disparity(cost, bins)
 

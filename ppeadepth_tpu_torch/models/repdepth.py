@@ -38,6 +38,9 @@ _F32_MODULES = ("pose_encoder", "pose")
 _DECODERS = ("depth", "mono_depth")
 _DECODER_F32 = ("disp_convs", "adapter", "adapters", "deconv_adpt",
                 "deconv_adpt2")
+# the DynamicDepth volume's options (`--dyn_cv`) and Config's defaults
+_CV_DEFAULTS = dict(cv_min=False, cv_set_1=False, cv_pool=False,
+                    cv_pool_radius=1, cv_pool_th=0.7)
 
 
 def cudnn_without_tf32():
@@ -71,18 +74,15 @@ class RepDepth(nn.Module):
     """opt: `options.Config` (or the JAX package's), or any object with its
     fields adapter, adpt_test, rep_size, g_blk, g_ffn, ratio, trans,
     input, mono_trans, mono_input, dc, dyn_cv, num_depth_bins and
-    depth_binning, and dec_id and dec_ratio where the object has them
-    (Config's defaults 1 and 0.25 otherwise; the port imports nothing of
-    the JAX package); training also reads frame_ids, matching_ids, height, width and
+    depth_binning, and dec_id, dec_ratio and the `cv_*` options where the
+    object has them (Config's defaults otherwise; the port imports nothing
+    of the JAX package); training also reads frame_ids, matching_ids, height, width and
     no_matching_augmentation, and drop_path_rate, use_checkpoint and
     lk_backend where the object has them (Config's defaults 0.3, False and
     "lax" otherwise)."""
 
     def __init__(self, opt, merged: bool = False):
         super().__init__()
-        if opt.dyn_cv:
-            raise NotImplementedError(
-                "the DynamicDepth cost volume (--dyn_cv) is not ported yet")
         adpt = opt.adpt_test if opt.adapter else -1
         common = dict(rep_size=opt.rep_size, adpt_test=adpt, g_blk=opt.g_blk,
                       g_ffn=opt.g_ffn, ratio=opt.ratio, merged=merged,
@@ -128,13 +128,19 @@ class RepDepth(nn.Module):
         return axisangle, translation, T
 
     def forward_multi(self, image, lookup_frames, rel_poses, K2, invK2,
-                      min_depth_bin, max_depth_bin, generator=None):
+                      min_depth_bin, max_depth_bin, generator=None,
+                      aug_mask=None):
         """Student multi-frame path: image [B, 3, H, W], lookup_frames
         [B, F, 3, H, W], rel_poses [B, F, 4, 4], K2/invK2 [B, 4, 4] at 1/4
-        scale -> ({("disp", 0): [B, 1, H, W]}, lowest_cost, confidence)."""
+        scale -> ({("disp", 0): [B, 1, H, W]}, lowest_cost, confidence).
+        Under `opt.dyn_cv` the DynamicDepth volume with the `cv_*` options
+        (Config's defaults where the object lacks them); aug_mask [B, 1, 1,
+        1] gates its in-fill (zeros when None)."""
+        opt = self.opt
         features, lowest_cost, conf = self.encoder(
             image, lookup_frames, rel_poses, K2, invK2, min_depth_bin,
-            max_depth_bin, generator)
+            max_depth_bin, generator, aug_mask=aug_mask, dyn=opt.dyn_cv,
+            **{k: getattr(opt, k, v) for k, v in _CV_DEFAULTS.items()})
         return self.depth(features), lowest_cost, conf
 
     def predict_poses(self, inputs, stop_grad: bool = False):
@@ -209,7 +215,7 @@ class RepDepth(nn.Module):
 
         multi, lowest_cost, conf = self.forward_multi(
             img, lookup, rel_poses, inputs[("K", 2)], inputs[("inv_K", 2)],
-            min_depth_bin, max_depth_bin, generator)
+            min_depth_bin, max_depth_bin, generator, aug_mask=aug_mask)
         outputs.update(multi)
         H, W = opt.height, opt.width
         outputs["lowest_cost"] = resize_nearest(lowest_cost[:, None], H, W)[:, 0]

@@ -16,6 +16,11 @@ ops/cost_volume.py; reference replk_matching.py:96-287).
 The per-frame diff volume is kernel C (`kernels.cost_volume.plane_sweep`);
 `frame_diffs` below is its plain version. Everything here is
 gradient-free in the reference (torch.no_grad).
+
+`plane_sweep_cost_volume_dyn` is the DynamicDepth variant (`--dyn_cv`):
+the occluded entries of the warped features are filled in before the
+diff. The JAX package runs it on lax with no Pallas kernel, and here it is
+plain torch, one sample at a time; kernel C does not run under it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..core.geometry import pixel_grid
 from ..kernels.cost_volume import plane_sweep
@@ -161,6 +167,142 @@ def plane_sweep_cost_volume(current_feats, lookup_feats, rel_poses, K, invK,
     missing = (cost == 0).to(torch.float32)
     cost_max = cost.amax(dim=1, keepdim=True)
     cost = cost * (1 - missing) + cost_max * missing
+    return cost, missing
+
+
+# the occlusion mask's fixed grid: the reference resamples it to 48x128
+# whatever the matching resolution (replk_matching_adapter.py:166); the
+# warp that reads it works in normalised coordinates, so the constant
+# reproduces the reference at any model size
+_OCC_HW = (48, 128)
+_OCC_DARK = 0.15  # a lookup pixel whose channel sum is below this is occluded
+
+
+def occ_masks(lookup_images):
+    """Per-(item, frame) occlusion masks on the fixed 48x128 grid (JAX
+    `_occ_masks`): pixels that DOMD blacked out (channel sum < 0.15),
+    resampled by torch's legacy nearest (src = floor(dst * in / out)).
+
+    Each frame has its own mask, indexed (b, f); the reference's F > 1
+    indexing of the stacked masks (replk_matching_adapter.py:171, 199) is
+    not copied. At F = 1, the only count the reference ran, the two agree.
+
+    lookup_images: [B, F, 3, H, W] -> bool [B, F, 48, 128]."""
+    H, W = lookup_images.shape[-2:]
+    oh, ow = _OCC_HW
+    dev = lookup_images.device
+    occ = lookup_images.sum(2) < _OCC_DARK  # [B, F, H, W]
+    ridx = torch.arange(oh, device=dev) * H // oh
+    cidx = torch.arange(ow, device=dev) * W // ow
+    return occ[:, :, ridx][:, :, :, cidx]
+
+
+def frame_diffs_dyn(cur, lk, occ, x, y, fill_gate, set_1: bool, pool: bool,
+                    pool_r: int, pool_th: float):
+    """Edge-masked L1 diffs of one (item, frame) pair with the DynamicDepth
+    in-fill applied to the warped features before the diff (JAX
+    `_frame_diffs_dyn`; match_features_dyn, replk_matching_adapter.py:
+    187-236).
+
+    cur, lk: [H, W, C] f32; occ: [48, 128] bool; x, y: [D, H*W] sample
+    coordinates (`project`); fill_gate: 0-d bool, False for a
+    matching-augmented item (:199). Returns [D, H, W].
+
+    The whole [D, H*W, C] warped tensor is materialised: the pool's window
+    spans neighbouring depth bins."""
+    H, W, C = lk.shape
+    D = x.shape[0]
+    warped = sample_bilinear_zeros(lk[None], x.reshape(1, -1),
+                                   y.reshape(1, -1)).reshape(D, H * W, C)
+    if set_1 or pool:
+        # the occlusion mask warped through the same sample locations:
+        # normalised coordinates are shared, so the pixel coordinates
+        # rescale to the mask's own grid (align_corners)
+        oh, ow = _OCC_HW
+        xo = x * ((ow - 1) / max(W - 1, 1))
+        yo = y * ((oh - 1) / max(H - 1, 1))
+        occ_w = sample_bilinear_zeros(occ.float()[None, :, :, None],
+                                      xo.reshape(1, -1), yo.reshape(1, -1))
+        m = ((occ_w.reshape(D, H * W) > pool_th) & fill_gate)[..., None]
+        if set_1:
+            # :203 warped[mask] = 1.0, every channel
+            warped = torch.where(m, 1.0, warped)
+        else:
+            # :205-208: the occluded entries zeroed, a 3-D max-pool over
+            # (depth, h, w) per channel (max_pool3d pads with -inf, as the
+            # JAX reduce_window's SAME padding), and the in-fill from it
+            xz = torch.where(m, 0.0, warped).reshape(D, H, W, C)
+            pooled = F.max_pool3d(xz.permute(3, 0, 1, 2), 2 * pool_r + 1,
+                                  stride=1, padding=pool_r)
+            pooled = pooled.permute(1, 2, 3, 0).reshape(D, H * W, C)
+            warped = torch.where(m, pooled, warped)
+    diff = torch.mean(torch.abs(warped - cur.reshape(1, H * W, C)), dim=-1)
+    edge = ((x >= 2.0) & (x <= W - 2) & (y >= 2.0) & (y <= H - 2)).float()
+    ys = torch.arange(H, device=x.device)[:, None]
+    xs = torch.arange(W, device=x.device)[None, :]
+    cur_border = ((ys >= 2) & (ys < H - 2) & (xs >= 2) & (xs < W - 2)
+                  ).float().reshape(-1)
+    return (diff * edge * cur_border).reshape(D, H, W)
+
+
+def plane_sweep_cost_volume_dyn(current_feats, lookup_feats, rel_poses, K,
+                                invK, depth_bins, lookup_images, aug_mask,
+                                cv_min: bool = False, set_1: bool = False,
+                                pool: bool = True, pool_r: int = 1,
+                                pool_th: float = 0.7,
+                                set_missing_to_max: bool = True):
+    """DynamicDepth cost volume (JAX `plane_sweep_cost_volume_dyn`;
+    match_features_dyn, replk_matching_adapter.py:163-258): per lookup
+    frame, warp the features, fill in the DOMD-occluded entries (`set_1`:
+    1.0; `pool`: a 3-D max-pool of the unoccluded neighbourhood), then
+    diff; frames combine by min (`cv_min`) or the observed-count average.
+
+    current_feats: [B, C, H, W]; lookup_feats: [B, F, C, H, W] (any float
+    dtype, computed in f32); rel_poses: [B, F, 4, 4]; K, invK: [B, 4, 4]
+    at the features' scale; depth_bins: [D]; lookup_images: [B, F, 3, Hf,
+    Wf] at full resolution (black = occluded); aug_mask: [B, 1, 1, 1] (1:
+    a matching-augmented item, whose in-fill is skipped, :199).
+
+    Returns (cost_volume [B, D, H, W] f32, missing_mask [B, D, H, W]). The
+    batch runs one item at a time, as JAX's `lax.map`, to bound the
+    materialised warps."""
+    B, _, H, W = current_feats.shape
+    cur = current_feats.float().permute(0, 2, 3, 1)  # [B, H, W, C]
+    occ = occ_masks(lookup_images)
+    fill_gate = aug_mask.reshape(B) == 0
+    # the reference's sentinel for "unobserved" under cv_min is 1.0 (:172,
+    # :236-243): initialised to ones, zeros set to 1.0 before each min, 1.0
+    # set to 0 after the frames. It also drops an observed best diff >= 1.0
+    # as missing; kept as the reference has it (the non-dyn volume's inf
+    # sentinel does not)
+    cost = torch.full((B, depth_bins.shape[0], H, W), float(cv_min),
+                      device=cur.device)
+    counts = torch.zeros_like(cost)
+    for f in range(lookup_feats.shape[1]):
+        T = rel_poses[:, f].float()
+        P = (K.float() @ T)[:, :3, :]
+        A = P[:, :, :3] @ invK[:, :3, :3].float()
+        x, y = project(A, P[:, :, 3], depth_bins, H, W)  # [B, D, HW]
+        lk = lookup_feats[:, f].float().permute(0, 2, 3, 1)
+        diffs = torch.stack([
+            frame_diffs_dyn(cur[b], lk[b], occ[b, f], x[b], y[b],
+                            fill_gate[b], set_1, pool, pool_r, pool_th)
+            for b in range(B)])
+        valid = (T.abs().sum((1, 2)) > 0).float()
+        diffs = diffs * valid[:, None, None, None]
+        if cv_min:
+            cost = torch.minimum(cost, torch.where(diffs == 0, 1.0, diffs))
+        else:
+            cost = cost + diffs
+            counts = counts + (diffs > 0).float()
+    if cv_min:
+        cost = torch.where(cost == 1.0, 0.0, cost)
+    else:
+        cost = cost / (counts + 1e-7)
+    missing = (cost == 0).float()
+    if set_missing_to_max:
+        cost_max = cost.amax(dim=1, keepdim=True)
+        cost = cost * (1 - missing) + cost_max * missing
     return cost, missing
 
 

@@ -4,7 +4,9 @@ key, with colour augmentation and flips on (training) and off with a
 partial last batch (evaluation), for KITTI and both CityScapes datasets
 (the preprocessed training triplets and the `cityscapes_eval` layout);
 `device_prefetch` hands the training batch over without its colour
-pyramids; the unported DDAD dataset raises. No JAX compile."""
+pyramids; every dataset name of the JAX package maps to the port's class
+of the same name (DDAD's items are held to JAX in tests/test_torch_ddad.py).
+No JAX compile."""
 
 import random
 
@@ -156,5 +158,10 @@ def test_cityscapes_batches_match_jax(cityscapes, name, is_train, epoch):
 
 @pytest.mark.parametrize("name", ["ddad"])
 def test_unported_datasets_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        D.DATASETS[name]("x", [], 64, 96, [0], 4)
+    """No dataset is left unported: the last one, `name`, builds, and every
+    name of JAX's DATASETS maps to the port's class of the same name."""
+    ds = D.DATASETS[name]("x", [], 64, 96, [0], 4)
+    assert len(ds) == 0 and not ds.check_depth()
+    assert set(D.DATASETS) == set(JD.DATASETS)
+    for key, cls in JD.DATASETS.items():
+        assert D.DATASETS[key].__name__ == cls.__name__, key

@@ -121,8 +121,14 @@ def test_lk_dx_launches_kernel_a_once(cuda):
 
 # kernel #3 (the Pallas depthwise_conv2d_pallas) at the eval forward's
 # shapes under --lk_backend pallas: the stem's stride-1 3x3 at 96x320 and
-# each stage's large kernel and k=5, at a partial last eval batch (B=5)
-LK_PALLAS = [(128, 96, 320, 3), *STAGES, *((C, H, W, 5) for C, H, W, _ in STAGES)]
+# each stage's large kernel and k=5, at a partial last eval batch (B=5);
+# and at the DDAD eval's 320x480 (stem 160x240, stages 80x120 .. 10x15,
+# where the last is shorter than its k=13 and odd in width)
+STAGES_DDAD = [(C, 320 // 4 >> i, 480 // 4 >> i, k)
+               for i, (C, _, _, k) in enumerate(STAGES)]
+LK_PALLAS = [(128, 96, 320, 3), *STAGES, *((C, H, W, 5) for C, H, W, _ in STAGES),
+             (128, 160, 240, 3), *STAGES_DDAD,
+             *((C, H, W, 5) for C, H, W, _ in STAGES_DDAD)]
 
 
 @pytest.mark.parametrize("C,H,W,k", LK_PALLAS)
@@ -378,6 +384,7 @@ def _near_boundary(A, t, bins, H, W):
 @pytest.mark.parametrize("B,C,H,W,D", [
     (8, 128, 48, 160, 96),       # the student's main path, 640x192
     (12, 128, 48, 128, 96),      # the stage-2 step, 512x192
+    (12, 128, 80, 120, 96),      # the DDAD eval, 480x320
     (2, 16, 13, 27, 40),         # H*W not a multiple of 8 pixels, D of 32
     (1, 256, 11, 21, 33),        # the widest C
     (2, 192, 48, 160, 96),       # rep_size l's stage 0
