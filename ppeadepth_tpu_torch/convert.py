@@ -3,7 +3,7 @@ port (JAX counterpart: ppeadepth_tpu/convert.py, which writes flax
 msgpack):
 
     python -m ppeadepth_tpu_torch.convert --torch <model.pth> --out <folder>
-        [--rep_size b] [--height 192] [--width 640] [--adapter] [--dc]
+        [--rep_size b] [--height 192] [--width 640] [--no-adapter] [--dc]
         [--min_depth_bin X --max_depth_bin Y]   (else read from track.pth)
 
 The folder holds model.pth (the whole RepDepth under the reference's
@@ -30,7 +30,9 @@ def main(argv=None):
     p.add_argument("--rep_size", default="b")
     p.add_argument("--height", type=int, default=192)
     p.add_argument("--width", type=int, default=640)
-    p.add_argument("--adapter", action="store_true", default=True)
+    # --no-adapter converts the plain (adapter-free) RepDepth
+    p.add_argument("--adapter", action=argparse.BooleanOptionalAction,
+                   default=True)
     p.add_argument("--adpt_test", type=int, default=4)
     p.add_argument("--dc", action="store_true")
     p.add_argument("--dec_id", type=int, default=1)

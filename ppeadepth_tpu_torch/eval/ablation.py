@@ -16,7 +16,7 @@ Blocks are named by the port's (the reference's) state_dict prefixes, e.g.
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -61,18 +61,15 @@ def zero_adapter(state_dict: Dict[str, torch.Tensor],
 def run_block_ablation(eval_fn: Callable[[Dict[str, torch.Tensor]], np.ndarray],
                        state_dict: Dict[str, torch.Tensor],
                        submodules: Sequence[str] = ("encoder", "mono_encoder"),
-                       out_path: str = "repl.txt",
-                       blocks: Optional[Sequence[str]] = None):
-    """eval_fn(state_dict) -> mean_errors [7]. Ablates each block of
-    `blocks` (every adapter block of `submodules`, in order, when None) and
-    writes one line per block, `<block> <abs_rel> <a1>`, to `out_path`
-    (evaluate_depth_layer.py:406-417). Returns [(block, mean_errors)]."""
-    if blocks is None:
-        blocks = [b for sub in submodules
-                  for b in adapter_block_paths(state_dict, sub)]
+                       out_path: str = "repl.txt"):
+    """eval_fn(state_dict) -> mean_errors [7]. Ablates each adapter block
+    of `submodules` in order and writes one line per block, `<block>
+    <abs_rel> <a1>`, to `out_path` (evaluate_depth_layer.py:406-417).
+    Returns [(block, mean_errors)]."""
     results = []
     with open(out_path, "w") as f:
-        for block in blocks:
+        for block in (b for sub in submodules
+                      for b in adapter_block_paths(state_dict, sub)):
             errors = eval_fn(zero_adapter(state_dict, block))
             f.write(f"{block} {errors[0]:.5f} {errors[4]:.5f}\n")
             f.flush()

@@ -20,7 +20,7 @@ gradient-free in the reference (torch.no_grad).
 `plane_sweep_cost_volume_dyn` is the DynamicDepth variant (`--dyn_cv`):
 the occluded entries of the warped features are filled in before the
 diff. The JAX package runs it on lax with no Pallas kernel, and here it is
-plain torch, one sample at a time; kernel C does not run under it.
+plain torch, one item at a time; kernel C does not run under it.
 """
 
 from __future__ import annotations
@@ -176,6 +176,12 @@ def plane_sweep_cost_volume(current_feats, lookup_feats, rel_poses, K, invK,
 # reproduces the reference at any model size
 _OCC_HW = (48, 128)
 _OCC_DARK = 0.15  # a lookup pixel whose channel sum is below this is occluded
+# items of the batch a chunk of the dyn volume: one, as JAX's `lax.map`.
+# Four a chunk took 114.621 ms a B=12 stage-2 call against 118.499, with
+# 10.356 GiB of transients against 2.691, and raised the --dyn_cv step's
+# peak from 15.9 to 20.8 GiB (PERF.md section 6): the volume is bound by
+# its bytes, not by its launches
+_DYN_ITEMS = 1
 
 
 def occ_masks(lookup_images):
@@ -199,21 +205,21 @@ def occ_masks(lookup_images):
 
 def frame_diffs_dyn(cur, lk, occ, x, y, fill_gate, set_1: bool, pool: bool,
                     pool_r: int, pool_th: float):
-    """Edge-masked L1 diffs of one (item, frame) pair with the DynamicDepth
+    """Edge-masked L1 diffs of n (item, frame) pairs with the DynamicDepth
     in-fill applied to the warped features before the diff (JAX
     `_frame_diffs_dyn`; match_features_dyn, replk_matching_adapter.py:
     187-236).
 
-    cur, lk: [H, W, C] f32; occ: [48, 128] bool; x, y: [D, H*W] sample
-    coordinates (`project`); fill_gate: 0-d bool, False for a
-    matching-augmented item (:199). Returns [D, H, W].
+    cur, lk: [n, H, W, C] f32; occ: [n, 48, 128] bool; x, y: [n, D, H*W]
+    sample coordinates (`project`); fill_gate: [n] bool, False for a
+    matching-augmented item (:199). Returns [n, D, H, W].
 
-    The whole [D, H*W, C] warped tensor is materialised: the pool's window
-    spans neighbouring depth bins."""
-    H, W, C = lk.shape
-    D = x.shape[0]
-    warped = sample_bilinear_zeros(lk[None], x.reshape(1, -1),
-                                   y.reshape(1, -1)).reshape(D, H * W, C)
+    The whole [n, D, H*W, C] warped tensor is materialised: the pool's
+    window spans neighbouring depth bins."""
+    n, H, W, C = lk.shape
+    D = x.shape[1]
+    warped = sample_bilinear_zeros(lk, x.reshape(n, -1),
+                                   y.reshape(n, -1)).reshape(n, D, H * W, C)
     if set_1 or pool:
         # the occlusion mask warped through the same sample locations:
         # normalised coordinates are shared, so the pixel coordinates
@@ -221,28 +227,31 @@ def frame_diffs_dyn(cur, lk, occ, x, y, fill_gate, set_1: bool, pool: bool,
         oh, ow = _OCC_HW
         xo = x * ((ow - 1) / max(W - 1, 1))
         yo = y * ((oh - 1) / max(H - 1, 1))
-        occ_w = sample_bilinear_zeros(occ.float()[None, :, :, None],
-                                      xo.reshape(1, -1), yo.reshape(1, -1))
-        m = ((occ_w.reshape(D, H * W) > pool_th) & fill_gate)[..., None]
+        occ_w = sample_bilinear_zeros(occ.float()[..., None],
+                                      xo.reshape(n, -1), yo.reshape(n, -1))
+        m = ((occ_w.reshape(n, D, H * W) > pool_th)
+             & fill_gate[:, None, None])[..., None]
         if set_1:
             # :203 warped[mask] = 1.0, every channel
             warped = torch.where(m, 1.0, warped)
         else:
             # :205-208: the occluded entries zeroed, a 3-D max-pool over
             # (depth, h, w) per channel (max_pool3d pads with -inf, as the
-            # JAX reduce_window's SAME padding), and the in-fill from it
-            xz = torch.where(m, 0.0, warped).reshape(D, H, W, C)
-            pooled = F.max_pool3d(xz.permute(3, 0, 1, 2), 2 * pool_r + 1,
+            # JAX reduce_window's SAME padding), and the in-fill from it.
+            # [n, C, D, H, W] is a channels_last_3d view of the bytes
+            xz = torch.where(m, 0.0, warped).reshape(n, D, H, W, C)
+            pooled = F.max_pool3d(xz.permute(0, 4, 1, 2, 3), 2 * pool_r + 1,
                                   stride=1, padding=pool_r)
-            pooled = pooled.permute(1, 2, 3, 0).reshape(D, H * W, C)
+            del xz
+            pooled = pooled.permute(0, 2, 3, 4, 1).reshape(n, D, H * W, C)
             warped = torch.where(m, pooled, warped)
-    diff = torch.mean(torch.abs(warped - cur.reshape(1, H * W, C)), dim=-1)
+    diff = torch.mean(torch.abs(warped - cur.reshape(n, 1, H * W, C)), dim=-1)
     edge = ((x >= 2.0) & (x <= W - 2) & (y >= 2.0) & (y <= H - 2)).float()
     ys = torch.arange(H, device=x.device)[:, None]
     xs = torch.arange(W, device=x.device)[None, :]
     cur_border = ((ys >= 2) & (ys < H - 2) & (xs >= 2) & (xs < W - 2)
                   ).float().reshape(-1)
-    return (diff * edge * cur_border).reshape(D, H, W)
+    return (diff * edge * cur_border).reshape(n, D, H, W)
 
 
 def plane_sweep_cost_volume_dyn(current_feats, lookup_feats, rel_poses, K,
@@ -264,8 +273,8 @@ def plane_sweep_cost_volume_dyn(current_feats, lookup_feats, rel_poses, K,
     a matching-augmented item, whose in-fill is skipped, :199).
 
     Returns (cost_volume [B, D, H, W] f32, missing_mask [B, D, H, W]). The
-    batch runs one item at a time, as JAX's `lax.map`, to bound the
-    materialised warps."""
+    batch runs `_DYN_ITEMS` items at a time, as JAX's `lax.map`, to bound
+    the materialised warps."""
     B, _, H, W = current_feats.shape
     cur = current_feats.float().permute(0, 2, 3, 1)  # [B, H, W, C]
     occ = occ_masks(lookup_images)
@@ -284,10 +293,10 @@ def plane_sweep_cost_volume_dyn(current_feats, lookup_feats, rel_poses, K,
         A = P[:, :, :3] @ invK[:, :3, :3].float()
         x, y = project(A, P[:, :, 3], depth_bins, H, W)  # [B, D, HW]
         lk = lookup_feats[:, f].float().permute(0, 2, 3, 1)
-        diffs = torch.stack([
-            frame_diffs_dyn(cur[b], lk[b], occ[b, f], x[b], y[b],
-                            fill_gate[b], set_1, pool, pool_r, pool_th)
-            for b in range(B)])
+        diffs = torch.cat([
+            frame_diffs_dyn(cur[s], lk[s], occ[s, f], x[s], y[s],
+                            fill_gate[s], set_1, pool, pool_r, pool_th)
+            for s in (slice(i, i + _DYN_ITEMS) for i in range(0, B, _DYN_ITEMS))])
         valid = (T.abs().sum((1, 2)) > 0).float()
         diffs = diffs * valid[:, None, None, None]
         if cv_min:

@@ -144,6 +144,19 @@ def test_dyn_cost_volume_matches_jax(cv_min, mode, F_):
     np.testing.assert_array_equal(cost[1], plain[1])  # gated off
 
 
+@pytest.mark.parametrize("mode", ["set_1", "pool"])
+def test_dyn_volume_chunks_agree(mode, monkeypatch):
+    """One item a chunk (`_DYN_ITEMS`, as shipped) and the whole batch in
+    one chunk give the same volume and missing mask, exactly."""
+    inputs = _inputs(2)
+    kw = dict(cv_min=False, pool_r=1, pool_th=0.7, **MODES[mode])
+    assert CV._DYN_ITEMS == 1
+    one = _port(inputs, **kw)
+    monkeypatch.setattr(CV, "_DYN_ITEMS", B)
+    for got, ref in zip(_port(inputs, **kw), one):
+        np.testing.assert_array_equal(got, ref)
+
+
 def test_occ_masks_select_legacy_nearest():
     """The 48x128 masks are torch's legacy-nearest selection of the
     channel sum < 0.15 pixels, per (item, frame), as JAX `_occ_masks`."""

@@ -5,6 +5,8 @@ tensors on one converted tree, the repl.txt lines, and
 reference-checkpoint converter (`convert.py`) into an `InferenceSession`,
 and `utils/vis.colorize`. No JAX compile."""
 
+import json
+import os
 import sys
 
 import numpy as np
@@ -172,6 +174,15 @@ def test_convert_round_trip_into_a_session(trees, tmp_path):
     sess2 = InferenceSession(TINY, checkpoint=out2, device="cpu",
                              dtype="float32")
     assert (sess2.min_depth_bin, sess2.max_depth_bin) == (0.2, 30.0)
+    # --no-adapter converts the adapter-free network
+    out3 = convert.main(["--torch", str(ref_dir / "model.pth"), "--out",
+                         str(tmp_path / "ckpt3"), "--rep_size", "t",
+                         "--no-adapter"])
+    with open(os.path.join(out3, "opt.json")) as f:
+        assert json.load(f)["adapter"] is False
+    plain = torch.load(os.path.join(out3, "model.pth"), weights_only=True)
+    assert not any("adapter" in k.split(".") for k in plain)
+    assert any("adapter" in k.split(".") for k in sd)
 
 
 @pytest.mark.parametrize("matplotlib", [True, False],
