@@ -30,12 +30,13 @@ training form, bf16 compute on f32 parameters, B=12), its stage-2 step
 (`--train_cs --dc`: the dec_id-1 decoder adapters and the dc freezing, at
 the CityScapes preset's 512x192), the same with the DynamicDepth cost
 volume (`--dyn_cv --cv_pool`), and its CLIs (`python -m
-ppeadepth_tpu_torch.train`, `evaluate_depth_layer` and `evaluate_ddad`,
-run in-process) on seeded random weights, after building the hand-written
+ppeadepth_tpu_torch.train`, `evaluate_depth_layer`, `evaluate_ddad` and
+`eval_depth_ori`, run in-process) on seeded random weights, after building the hand-written
 kernels from `ppeadepth_tpu_torch/csrc/` and holding each against its
 plain PyTorch version at the shapes the paths give it (the training
-kernels at 640x192 and at stage 2's 512x192, #3 and kernel C also at the
-DDAD eval's 320x480):
+kernels at 640x192, at a --grad_accum 2 microbatch's B=6 and at stage 2's
+512x192, #3 and kernel C also at the DDAD eval's 320x480, kernel C also
+at the legacy eval's f32 C=64):
 
   * teacher `predict_depth`, 3 requests, against the CPU f32 forward;
   * student `predict_depth_multi`, 3 requests, against the CPU f32 forward;
@@ -53,9 +54,20 @@ DDAD eval's 320x480):
     each encoder; the unablated eval equal to `--eval`'s);
   * `evaluate_ddad` on a synthetic DDAD set (1936x1216, evaluated at the
     forced 320x480) under pallas and lax, against each other and the CPU;
+  * the legacy ManyDepth eval (`eval_depth_ori`, ResNet-18 with kernel C at
+    f32 C=64) from seeded legacy-format checkpoints: the student,
+    --eval_teacher, --zero_cost_volume and --static_camera against the CPU,
+    then --save_pred_disps, --ext_disp_to_eval and the benchmark PNGs;
+  * --fast_pipeline: the native loader built from native/loader.cc (decode
+    against PIL), the augment on the card against the CPU, and the training
+    CLI of above under --fast_pipeline --decode_cache beside the threaded
+    loader's rate;
+  * --grad_accum 2: one f32 step at B=4 against the same step on the CPU,
+    and 1 + 3 bf16 steps at B=12 (two microbatches of 6: twice stage 1's
+    launches), beside stage 1's wall and peak;
   * stage 2: one f32 step at B=2 against the same step on the CPU, and
     1 + 5 bf16 steps at B=12 (frozen set bit-identical, the decoder
-    adapters moved);
+    adapters moved), and 1 + 1 under --grad_accum 2;
   * --dyn_cv: the dyn volume on the card against the CPU, then the stage-2
     f32 parity step and 1 + 5 bf16 steps under it (kernel C not launched,
     the dyn volume once a step), lookup frames with black patches;
@@ -112,6 +124,9 @@ D_BWD_REL_TOL = 1e-5    # kernel D coordinate gradient: max|d| <= tol x max|ref|
 A_F32_REL_TOL = 1e-4    # kernel A in f32 (forward, dx): max|d| <= tol x max|ref|
 TRAIN_BATCH = 12        # bench.py's train-step batch
 TRAIN_STEPS = 5         # timed, after one warm-up step
+MICRO_BATCH = TRAIN_BATCH // 2  # a --grad_accum 2 microbatch
+ACCUM_STEPS = 3         # timed --grad_accum 2 steps, after one warm-up step
+ACCUM_PARITY_BATCH = 4  # the f32 --grad_accum 2 step against the CPU's
 PARITY_BATCH = 2        # the f32 card step against the f32 CPU step
 PARITY_METRIC_TOL = 1e-3  # |d| of the loss and each metric (values ~0.1-1)
 PARITY_GRAD_L2 = 1e-2   # relative L2 of the concatenated trainable gradient
@@ -148,6 +163,7 @@ STAGE2_B = TRAIN_B.replace(train_cs=True, dc=True, dec_id=1, ktf=True,
 # its pool in-fill on (DynamicDepth's 3-D max-pool of the unoccluded
 # neighbourhood, radius 1, threshold 0.7)
 DYN_B = STAGE2_B.replace(dyn_cv=True, cv_pool=True)
+ACCUM_B = TRAIN_B.replace(grad_accum=2)
 DYN_REL_TOL = C_REL_TOL  # the dyn volume on the card vs the CPU, off the
                          # edge-mask boundaries: max|d| <= tol x max|ref|
 CHUNK_ITEMS = 4         # the dyn volume timed also at this many items a chunk
@@ -651,19 +667,23 @@ def _sweep_bound(B, C, H, W, D, samples, itemsize):
     return (*_bound_ms(nbytes, flop, F32_FLOP_PER_S), flop, nbytes)
 
 
-def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B, dtypes=None):
+def check_plane_sweep(dev, rng, batch=BATCH, opt=SHIPPED_B, dtypes=None,
+                      channels=None):
     """Kernel C against its plain version at a main-path shape (the
     student's: B=8, 48x160; the stage-2 step's: B=12, 48x128; the DDAD
-    eval's: B=12, 80x120; C=128, 96 log bins 0.1-10, 1/4-scale KITTI
-    intrinsics, a non-degenerate pose), with f32 and with bf16 features
-    (or `dtypes`), each timed by CUDA events as the other kernels of the
-    full run; the times returned are the last dtype's (bf16, the serving
-    and training paths' dtype, unless `dtypes` says otherwise)."""
+    eval's: B=12, 80x120; a --grad_accum 2 microbatch's: B=6, 48x160;
+    C=128, or `channels`: the legacy eval's C=64; 96 log bins 0.1-10,
+    1/4-scale KITTI intrinsics, a non-degenerate pose), with f32 and with
+    bf16 features (or `dtypes`), each timed by CUDA events as the other
+    kernels of the full run; the times returned are the last dtype's
+    (bf16, the serving and training paths' dtype, unless `dtypes` says
+    otherwise)."""
     import torch
 
     from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 
     C, H, W, _, _ = _stage_shapes(opt)[0]
+    C = channels or C
     D = opt.num_depth_bins
     A, t, bins, near, samples = _sweep_geometry(dev, rng, batch, C, H, W, D)
 
@@ -771,18 +791,19 @@ def _warp_inputs(dev, rng, n, height, width):
     return img, coords
 
 
-def check_warp(dev, rng, opt=SHIPPED_B):
+def check_warp(dev, rng, opt=SHIPPED_B, batch=TRAIN_BATCH):
     """Kernel D, forward and coordinate gradient, against its plain
     version (torch gathers, autograd for the gradient) at one branch's
     warp of the training step: [24, 192, 640, 3] (2 frames x B=12; stage
-    2: [24, 192, 512, 3]), f32."""
+    2: [24, 192, 512, 3]; a --grad_accum 2 microbatch: [12, 192, 640,
+    3]), f32."""
     import torch
     import torch.nn.functional as F
 
     from ppeadepth_tpu_torch.kernels.warp import (
         coords_grad, warp_border, warp_border_plain)
 
-    n, height, width = 2 * TRAIN_BATCH, opt.height, opt.width
+    n, height, width = 2 * batch, opt.height, opt.width
     img, coords = _warp_inputs(dev, rng, n, height, width)
     g = torch.from_numpy(rng.randn(n, height, width, 3).astype("float32")).to(dev)
     lim = torch.tensor([1.0, 1.0], device=dev)
@@ -921,12 +942,13 @@ def _train_lk_calls(opt):
     return calls
 
 
-def check_lk_train(dev, rng, opt=TRAIN_B):
+def check_lk_train(dev, rng, opt=TRAIN_B, batch=TRAIN_BATCH):
     """Kernel #2, the training large-kernel conv: kernel A without bias
     (forward) and on the flipped kernel (dx, through the autograd
     Function), against its plain version (cuDNN in f32, TF32 off) at each
     conv shape of the training step of `opt` (stage 1 at 640x192, stage 2
-    at 512x192) at B=12, in f32 and bf16. Times and
+    at 512x192) at B=12 (or `batch`: 6, a --grad_accum 2 microbatch), in
+    f32 and bf16. Times and
     bounds are per training step in bf16 (the main path), summed over its
     calls; the library yardstick is cuDNN's depthwise `F.conv2d` forward
     and `torch.nn.grad.conv2d_input`."""
@@ -943,8 +965,8 @@ def check_lk_train(dev, rng, opt=TRAIN_B):
                 return torch.from_numpy((rng.randn(*shape) * scale).astype(
                     "float32")).to(dev).to(dtype)
 
-            x = t((TRAIN_BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
-            g = t((TRAIN_BATCH, H, W, C), 1.0).permute(0, 3, 1, 2)
+            x = t((batch, H, W, C), 1.0).permute(0, 3, 1, 2)
+            g = t((batch, H, W, C), 1.0).permute(0, 3, 1, 2)
             w = t((C, 1, k, k), 1.0 / k)
             wf = w.flip(-1, -2).contiguous()
             xg = x.detach().requires_grad_(True)
@@ -952,7 +974,7 @@ def check_lk_train(dev, rng, opt=TRAIN_B):
             y.backward(g)
             torch.cuda.synchronize()
             tol = A_REL_TOL if dtype == torch.bfloat16 else A_F32_REL_TOL
-            tag = f"kernel #2 [{TRAIN_BATCH},{H},{W},{C}] k={k} {str(dtype)[6:]}"
+            tag = f"kernel #2 [{batch},{H},{W},{C}] k={k} {str(dtype)[6:]}"
             errs = []
             for name, got, ref in (
                     ("forward", y, depthwise_plain(x.float(), w.float())),
@@ -972,9 +994,9 @@ def check_lk_train(dev, rng, opt=TRAIN_B):
                 lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=k // 2,
                                                    groups=C),
                 lambda: _input_grad(g, w), 10)
-            macs = _dw_macs(TRAIN_BATCH, H, W, C, k)
+            macs = _dw_macs(batch, H, W, C, k)
             esize = x.element_size()
-            bnd, by = _bound_ms(esize * (2 * TRAIN_BATCH * H * W * C + C * k * k),
+            bnd, by = _bound_ms(esize * (2 * batch * H * W * C + C * k * k),
                                 2 * macs, F32_FLOP_PER_S)
             print(f"{tag}: forward {k_f:.4f} ms (plain/cuDNN {p_f:.4f}), dx "
                   f"{k_d:.4f} ms (plain {p_d:.4f}, conv2d_input {lib_d:.4f}), "
@@ -988,7 +1010,7 @@ def check_lk_train(dev, rng, opt=TRAIN_B):
             else:
                 f32["ms"] += k_f * n_fwd + k_d * n_dx
                 f32["plain_ms"] += p_f * n_fwd + p_d * n_dx
-    print(f"kernel #2 per training step (bf16, {opt.width}x{opt.height}): "
+    print(f"kernel #2 per training step of B={batch} (bf16, {opt.width}x{opt.height}): "
           f"{step['ms']:.3f} ms, plain "
           f"{step['plain_ms']:.3f} ms, bound {bound.ms:.3f} ms; in f32 "
           f"{f32['ms']:.3f} ms, plain {f32['plain_ms']:.3f} ms")
@@ -1269,33 +1291,36 @@ def _train_setup(sd, opt, device):
     return model, state, make_train_step(model, opt, optim, sched)
 
 
-def train_parity(sd, dev, opt=TRAIN_B, tag="parity"):
-    """One f32 training step of `opt` (stage 1, or stage 2) on `dev`
-    against the same step on the CPU: the same weights, batch
-    (B=PARITY_BATCH) and draws (matching augmentation from fixed uniforms,
-    drop path off). Compares the loss, every metric and the concatenated
-    trainable gradient."""
+def train_parity(sd, dev, opt=TRAIN_B, tag="parity", batch=PARITY_BATCH):
+    """One f32 training step of `opt` (stage 1, stage 2, or under
+    --grad_accum) on `dev` against the same step on the CPU: the same
+    weights, batch (B=PARITY_BATCH, or `batch`) and draws (matching
+    augmentation from fixed uniforms, drop path off; microbatch i takes
+    the draws of items i::N). Compares the loss, every metric and the
+    concatenated trainable gradient."""
     import numpy as np
     import torch
 
     from ppeadepth_tpu_torch.train.step import StepDraws
 
     opt = opt.replace(compute_dtype="float32", drop_path_rate=0.0)
-    batch = _train_batch(np.random.RandomState(SEED + 2), PARITY_BATCH, opt)
+    n, N = batch, opt.grad_accum
+    batch = _train_batch(np.random.RandomState(SEED + 2), n, opt)
     rng = np.random.RandomState(SEED + 3)
-    u = np.linspace(0.1, 0.9, PARITY_BATCH).astype("float32")
-    noise = [rng.randn(PARITY_BATCH, opt.height, opt.width, 1).astype("float32")
+    u = np.linspace(0.1, 0.9, n).astype("float32")
+    noise = [rng.randn(n, opt.height, opt.width, 1).astype("float32")
              for _ in range(2)]
     res = {}
     for device in (dev.type, "cpu"):
         model, state, step = _train_setup(sd, opt, device)
-        draws = StepDraws(*(torch.from_numpy(a).to(device) for a in (u, *noise)))
+        draws = [StepDraws(*(torch.from_numpy(a[i::N]).to(device)
+                             for a in (u, *noise))) for i in range(N)]
         t0 = time.perf_counter()
         _, metrics = step(state, batch, draws)
         grads = torch.cat([p.grad.flatten().float().cpu()
                            for p in model.parameters() if p.requires_grad])
         res[device] = ({k: v.item() for k, v in metrics.items()}, grads)
-        print(f"{tag}: f32 step B={PARITY_BATCH} {opt.width}x{opt.height} on "
+        print(f"{tag}: f32 step B={n} (grad_accum {N}) {opt.width}x{opt.height} on "
               f"{device} in {time.perf_counter() - t0:.2f} s (first call)")
         del model, step
     (m_gpu, g_gpu), (m_cpu, g_cpu) = res[dev.type], res["cpu"]
@@ -1314,15 +1339,17 @@ def train_parity(sd, dev, opt=TRAIN_B, tag="parity"):
 
 
 def _expected_launches(opt):
-    """Launches of each kernel in one training step of the configuration:
-    kernel D once per branch forward and backward; kernel A forward and dx
-    as `_train_lk_calls`; the plane sweep once per lookup frame, or never
-    under --dyn_cv (the DynamicDepth volume takes its place)."""
+    """Launches of each kernel in one training step of the configuration,
+    per microbatch (--grad_accum N: N times): kernel D once per branch
+    forward and backward; kernel A forward and dx as `_train_lk_calls`;
+    the plane sweep once per lookup frame, or never under --dyn_cv (the
+    DynamicDepth volume takes its place)."""
     calls = _train_lk_calls(opt)
-    return {"warp_fwd": 2, "warp_bwd": 2, "ffn_fused": 0,
-            "lk_dwconv": sum(c[4] for c in calls),
-            "lk_dwconv_dx": sum(c[5] for c in calls),
-            "plane_sweep": 0 if opt.dyn_cv else len(opt.matching_ids) - 1}
+    n = opt.grad_accum
+    return {"warp_fwd": 2 * n, "warp_bwd": 2 * n, "ffn_fused": 0,
+            "lk_dwconv": n * sum(c[4] for c in calls),
+            "lk_dwconv_dx": n * sum(c[5] for c in calls),
+            "plane_sweep": 0 if opt.dyn_cv else n * (len(opt.matching_ids) - 1)}
 
 
 class _DynCalls:
@@ -1348,14 +1375,17 @@ class _DynCalls:
         CV.plane_sweep_cost_volume_dyn = self._fn
 
 
-def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
+def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train", n_steps=TRAIN_STEPS,
+                walls=None):
     """The training phase of `opt`: bf16 compute, B=TRAIN_BATCH, on `dev`
     (stage 1 at 640x192; stage 2 at 512x192 with the decoder adapters, and
-    under --dyn_cv): one warm-up step and TRAIN_STEPS timed ones, with the
-    launch counts (and the dyn volume's calls), invariants and depth-bin
-    EMA checked after each. Stage 2 also shows
+    under --dyn_cv; either under --grad_accum): one warm-up step and
+    `n_steps` timed ones, with the launch counts (and the dyn volume's
+    calls), invariants and depth-bin EMA (of the microbatches' mean depth
+    extremes) checked after each. Stage 2 also shows
     the dc freezing: the decoder trunks and heads frozen, and every
-    parameter of each decoder's `adapter` and `deconv_adpt` moved."""
+    parameter of each decoder's `adapter` and `deconv_adpt` moved.
+    `walls[tag]` gets (median ms, peak bytes)."""
     import numpy as np
     import torch
 
@@ -1382,7 +1412,7 @@ def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     with _DynCalls() as dyn:
-        for i in range(1 + TRAIN_STEPS):
+        for i in range(1 + n_steps):
             old_bins = (state.min_depth_bin.item(), state.max_depth_bin.item())
             kernels.reset_launch_counts()
             torch.cuda.synchronize()
@@ -1410,9 +1440,11 @@ def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
                     raise AssertionError(f"{tag}: non-finite gradient of {n}")
                 if g.abs().max() > 0:
                     had_grad.add(n)
-            _, d = disp_to_depth(depths[-1], opt.min_depth, opt.max_depth)
-            dmin = max(opt.min_depth, d.amin(dim=(1, 2, 3)).mean().item() * 0.9)
-            dmax = d.amax(dim=(1, 2, 3)).mean().item() * 1.1
+            ds = [disp_to_depth(x, opt.min_depth, opt.max_depth)[1]
+                  for x in depths[-opt.grad_accum:]]
+            dmin = max(opt.min_depth, np.mean(
+                [d.amin(dim=(1, 2, 3)).mean().item() for d in ds]) * 0.9)
+            dmax = np.mean([d.amax(dim=(1, 2, 3)).mean().item() for d in ds]) * 1.1
             want = (old_bins[0] * 0.99 + dmin * 0.01, old_bins[1] * 0.99 + dmax * 0.01)
             got = (m["depth_bins/min"], m["depth_bins/max"])
             if not np.allclose(got, want, rtol=1e-5):
@@ -1440,12 +1472,14 @@ def train_steps(sd, dev, profile, opt=TRAIN_B, tag="train"):
                              f"unmoved {unmoved[:5]}, stats moved {stats_moved}")
     if opt.dc:
         _check_dc_decoders(named, trainable, start, tag)
-    print(f"{tag}: depth bins after {1 + TRAIN_STEPS} steps "
+    print(f"{tag}: depth bins after {1 + n_steps} steps "
           f"[{state.min_depth_bin.item():.6f}, {state.max_depth_bin.item():.6f}]; "
           f"loss over the timed steps {[round(v, 6) for v in losses]}, "
           f"{'fell' if losses[-1] < losses[0] else 'did not fall'}")
-    print(f"{tag} step B={TRAIN_BATCH} {opt.width}x{opt.height} bf16: median "
-          f"{med:.3f} ms/step "
+    if walls is not None:
+        walls[tag] = (med, peak)
+    print(f"{tag} step B={TRAIN_BATCH} (grad_accum {opt.grad_accum}) "
+          f"{opt.width}x{opt.height} bf16: median {med:.3f} ms/step "
           f"({TRAIN_BATCH / med * 1e3:.2f} images/s), all "
           f"{[round(t, 3) for t in times]} ms; peak device memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)")
@@ -1740,21 +1774,28 @@ def train_cli(sd, dev):
     _check_cli_run("train CLI", TRAIN_B, trainer, steps, counts, n_steps,
                    VALIDATE_EVERY, N_TEST, log, "smoke")
 
-    # the loop's rate: a step and the wait for its batch, for steps that are
-    # not the first of an epoch and follow no validation
+    rate = _loop_rate("train CLI", steps, vals, wall, peak)
+    return trainer, os.path.join(log, "smoke_final"), counts, rate
+
+
+def _loop_rate(tag, steps, vals, wall, peak):
+    """Print and return the loop's rate (images/s) of a KITTI CLI run: a
+    step and the wait for its batch, for steps that are not the first of
+    an epoch and follow no validation."""
     per_epoch = N_TRAIN // EVAL_BATCH
     clean = [steps[i][1] - steps[i - 1][1] for i in range(1, len(steps))
              if i % per_epoch and not any(steps[i - 1][1] <= v0 < steps[i][0]
                                           for v0, _ in vals)]
     step_ms = [(e - s) * 1e3 for s, e, *_ in steps]
-    print(f"train CLI B={EVAL_BATCH} 640x192 bf16: loop "
-          f"{EVAL_BATCH * len(clean) / sum(clean):.2f} images/s over "
+    rate = EVAL_BATCH * len(clean) / sum(clean)
+    print(f"{tag} B={EVAL_BATCH} 640x192 bf16: loop {rate:.2f} images/s "
+          f"({rate / EVAL_BATCH:.3f} steps/s) over "
           f"{len(clean)} steps with their loader wait (intervals "
           f"{[round(c * 1e3, 3) for c in clean]} ms); steps alone "
           f"{[round(t, 3) for t in step_ms]} ms; validations "
           f"{[round((e - s) * 1e3, 3) for s, e in vals]} ms; whole run "
           f"{wall:.2f} s; peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
-    return trainer, os.path.join(log, "smoke_final"), counts
+    return rate
 
 
 def check_resume(trainer, folder):
@@ -2424,6 +2465,333 @@ def ablation_cli(folder):
     return counts
 
 
+LEGACY_BINS = (0.1, 20.0)  # the bin range the reference writes in encoder.pth
+
+
+def _legacy_checkpoint(folder, rng):
+    """Seeded legacy ManyDepth networks (`models.resnet_matching` and the
+    ResNet-18 pose and mono nets) written in the reference's separate-file
+    format to `folder`: encoder.pth (the bin range, height and width beside
+    the weights), depth.pth, pose_encoder.pth, pose.pth, mono_encoder.pth
+    and mono_depth.pth. Conv weights N(0, 1/fan_in), BN scales 1 + 0.1 N,
+    biases 0.05 N; BN statistics calibrated by one train-mode pass of
+    random images at half the resolution, as `_random_state_dict` does."""
+    import os
+
+    import torch
+
+    from ppeadepth_tpu_torch.models.pose import PoseDecoder
+    from ppeadepth_tpu_torch.models.resnet import ResnetEncoder
+    from ppeadepth_tpu_torch.models.resnet_matching import (
+        DepthDecoder, ResnetEncoderMatching)
+
+    opt = SHIPPED_B
+    enc = ResnetEncoderMatching(18, opt.num_depth_bins, opt.depth_binning)
+    pose_enc, mono_enc = ResnetEncoder(18, 2), ResnetEncoder(18)
+    nets = {"encoder": enc, "depth": DepthDecoder(), "pose_encoder": pose_enc,
+            "pose": PoseDecoder(pose_enc.num_ch_enc, 2),
+            "mono_encoder": mono_enc, "mono_depth": DepthDecoder()}
+
+    def draw(t, scale, shift=0.0):
+        t.copy_(torch.from_numpy(rng.randn(*t.shape).astype("float32")
+                                 * scale + shift))
+
+    with torch.no_grad():
+        bns = []
+        for net in nets.values():
+            bns += [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+            for name, t in net.state_dict().items():
+                if not torch.is_floating_point(t) or "running" in name:
+                    continue
+                if name.endswith("bias"):
+                    draw(t, 0.05)
+                elif t.dim() == 1:
+                    draw(t, 0.1, 1.0)
+                else:
+                    draw(t, t[0].numel() ** -0.5)
+        for m in bns:
+            m.reset_running_stats()
+            m.momentum = None  # one pass: running stats = batch stats
+        h, w = opt.height // 2, opt.width // 2
+        img = torch.from_numpy(rng.rand(2, 3, h, w).astype("float32"))
+        lk = torch.roll(img, (2, 5), (2, 3))
+        K, invK = (torch.from_numpy(a) for a in _kitti_K(h // 4, w // 4, 2))
+        for net in nets.values():
+            net.train()
+        feats, _, _ = enc(img, lk[:, None],
+                          torch.from_numpy(_pose_4x4(rng, 2))[:, None], K, invK,
+                          *LEGACY_BINS)
+        nets["depth"](feats)
+        nets["pose"](pose_enc(torch.cat([lk, img], 1)))
+        nets["mono_depth"](mono_enc(img))
+        for m in bns:
+            m.momentum = 0.1
+    os.makedirs(folder)
+    for name, net in nets.items():
+        sd = dict(net.eval().state_dict())
+        if name == "encoder":
+            sd.update(min_depth_bin=torch.tensor(LEGACY_BINS[0]),
+                      max_depth_bin=torch.tensor(LEGACY_BINS[1]),
+                      height=opt.height, width=opt.width)
+        torch.save(sd, os.path.join(folder, f"{name}.pth"))
+
+
+def eval_ori_cli():
+    """The legacy ManyDepth eval (`ppeadepth_tpu_torch.eval_depth_ori`,
+    in-process) on the synthetic KITTI set in the current directory, from
+    seeded legacy-format checkpoints: the student, --eval_teacher,
+    --zero_cost_volume and --static_camera, each with its launches (kernel
+    C once a batch on the student's f32 [12, 64, 48, 160] features, no other
+    kernel) and against the port's CPU pass on the first 2 images
+    (EVAL_CPU_REL_TOL); then --save_pred_disps and --ext_disp_to_eval give
+    the same metrics, and --eval_split benchmark writes N_TEST uint16 PNGs.
+    Returns the student run's counts."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from ppeadepth_tpu_torch import eval_depth_ori as E
+    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch.options import parse_args
+
+    t0 = time.perf_counter()
+    _legacy_checkpoint("legacy", np.random.RandomState(SEED + 10))
+    os.makedirs(os.path.join("splits", "smoke2"))
+    with open(os.path.join("splits", "smoke", "test_files.txt")) as fh:
+        first = fh.read().splitlines()[:2]
+    with open(os.path.join("splits", "smoke2", "test_files.txt"), "w") as fh:
+        fh.write("\n".join(first) + "\n")
+    print(f"eval_ori: legacy checkpoint written in {time.perf_counter() - t0:.2f} s")
+    opt = parse_args(["--data_path", "kitti", "--eval_split", "smoke",
+                      "--load_weights_folder", "legacy", "--height", "192",
+                      "--width", "640", "--batch_size", str(EVAL_BATCH),
+                      "--num_workers", "8"])
+    n_batches = -(-N_TEST // EVAL_BATCH)
+    modes = {"student": {}, "--eval_teacher": dict(eval_teacher=True),
+             "--zero_cost_volume": dict(zero_cost_volume=True),
+             "--static_camera": dict(static_camera=True)}
+    disps, counts = {}, {}
+    for mode, flags in modes.items():
+        o = opt.replace(**flags)
+        tag = f"eval_ori {mode}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        d = E.predict_disps(o, "splits", device="cuda")
+        wall = time.perf_counter() - t0
+        counts[mode] = dict(kernels.launch_counts)
+        _check_counts(counts[mode], {
+            "plane_sweep": 0 if o.eval_teacher else n_batches, "lk_dwconv": 0,
+            "lk_dwconv_dx": 0, "ffn_fused": 0, "warp_fwd": 0, "warp_bwd": 0}, tag)
+        if d.shape != (N_TEST, opt.height, opt.width) or not np.isfinite(d).all():
+            raise AssertionError(f"{tag}: disparities {d.shape}, finite "
+                                 f"{np.isfinite(d).all()}")
+        cpu = E.predict_disps(o.replace(eval_split="smoke2"), "splits",
+                              device="cpu")
+        err, peak = np.abs(d[:2] - cpu).max(), np.abs(cpu).max()
+        print(f"{tag}: {N_TEST} images in {wall:.2f} s ({wall / N_TEST * 1e3:.2f} "
+              f"ms an image, f32, B={EVAL_BATCH}); scaled disparity range "
+              f"[{d.min():.4f}, {d.max():.4f}]; card vs CPU on 2 images "
+              f"max|d|={err:.3e} max|ref|={peak:.3e} (tol {EVAL_CPU_REL_TOL:g} "
+              f"x max|ref|)")
+        if not err <= EVAL_CPU_REL_TOL * peak:
+            raise AssertionError(f"{tag}: the card's pass disagrees with the CPU's")
+        disps[mode] = d
+    names = list(disps)
+    for i, a in enumerate(names):
+        for b in names[:i]:
+            if not np.abs(disps[a] - disps[b]).max() > 1e-3:
+                raise AssertionError(f"eval_ori: {a} and {b} give one answer")
+
+    errors = E.evaluate(opt.replace(save_pred_disps=True), "splits", device="cuda")
+    saved = os.path.join("legacy", "multi_smoke_split.npy")
+    ext = E.evaluate(opt.replace(ext_disp_to_eval=saved), "splits", device="cuda")
+    print(f"eval_ori: --save_pred_disps metrics {list(errors)}; "
+          f"--ext_disp_to_eval of {saved} {list(ext)}")
+    if not (np.isfinite(errors).all() and np.array_equal(errors, ext)):
+        raise AssertionError("eval_ori: --ext_disp_to_eval scores differently")
+    if E.evaluate(opt.replace(ext_disp_to_eval=saved, eval_split="benchmark"),
+                  "splits", device="cuda") is not None:
+        raise AssertionError("eval_ori: the benchmark split returned metrics")
+    out = os.path.join("legacy", "benchmark_predictions")
+    pngs = sorted(os.listdir(out))
+    arrs = [np.asarray(Image.open(os.path.join(out, n))) for n in pngs]
+    if len(pngs) != N_TEST or any(a.dtype != np.uint16 or a.shape != (352, 1216)
+                                  or not 0 < a.max() <= 80 * 256 for a in arrs):
+        raise AssertionError(f"eval_ori: benchmark PNGs {pngs[:3]} ...")
+    print(f"eval_ori: --eval_split benchmark wrote {len(pngs)} uint16 PNGs of "
+          f"1216x352, depth x256 in [{min(a.min() for a in arrs)}, "
+          f"{max(a.max() for a in arrs)}]")
+    return counts["student"]
+
+
+AUG_TOL = 1e-5  # colours in [0, 1], card against CPU (f32, another order)
+
+
+def check_fast_pipeline(dev):
+    """--fast_pipeline's pieces: `augment_batch` on the card against the
+    CPU on the same frames and factors at B=12, 640x192, every scale, a
+    blank frame included, and `prepare_batch`'s wall at that size (3 frames
+    of u8); then the native loader built from native/loader.cc into
+    build/native/ (its build time) and its decode against PIL within
+    tests/test_native_loader.py's bounds (equal at the native size,
+    resized within 12 of PIL's bilinear on average, a missing file blank).
+    A machine without libjpeg's headers cannot build the loader: then the
+    build's error (which must be the missing jpeglib.h) is printed and
+    False returned, and --fast_pipeline raises there (`train_cli_fast`)."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ppeadepth_tpu_torch.data import augment, native_loader as NL
+    from ppeadepth_tpu_torch.data.fast_pipeline import prepare_batch
+
+    rng = np.random.RandomState(SEED + 11)
+    H, W, B = SHIPPED_B.height, SHIPPED_B.width, TRAIN_BATCH
+    frames = {f: rng.rand(B, H, W, 3).astype("float32") for f in (0, -1, 1)}
+    frames[-1][3] = 0.0
+    K = np.tile(np.array([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0], [0, 0, 1, 0],
+                          [0, 0, 0, 1]], "float32"), (B, 1, 1))
+    fac = augment.sample_jitter_factors(torch.Generator().manual_seed(SEED), B)
+    ref = augment.augment_batch({f: torch.from_numpy(v) for f, v in frames.items()},
+                                torch.from_numpy(K), fac, H, W, 4, 4)
+    got = augment.augment_batch(
+        {f: torch.from_numpy(v).to(dev) for f, v in frames.items()},
+        torch.from_numpy(K).to(dev), {k: v.to(dev) for k, v in fac.items()},
+        H, W, 4, 4)
+    worst = {"colour": 0.0, "K": 0.0}
+    for k, r in ref.items():
+        g = got[k].cpu()
+        if k[0] in ("K", "inv_K"):
+            worst["K"] = max(worst["K"], ((g - r).abs().max() / r.abs().max()).item())
+        else:
+            worst["colour"] = max(worst["colour"], (g - r).abs().max().item())
+    blank = got[("color_aug", -1, 0)][3].abs().max().item()
+    print(f"fast pipeline: augment_batch B={B} {W}x{H}, 3 frames, 4 scales, "
+          f"card vs CPU: colours max|d|={worst['colour']:.3e} (tol {AUG_TOL:g}), "
+          f"K / inv_K max rel {worst['K']:.3e} (tol 1e-5); blank frame "
+          f"max {blank}")
+    if not (worst["colour"] <= AUG_TOL and worst["K"] <= 1e-5 and blank == 0):
+        raise AssertionError("fast pipeline: the card's augment disagrees")
+    u8 = {f: (v * 255).astype(np.uint8) for f, v in frames.items()}
+    gen = torch.Generator(dev).manual_seed(SEED)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepare_batch(u8, K, gen, H, W, 4, 1, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"fast pipeline: prepare_batch B={B} {W}x{H} 3 frames u8 (upload, "
+          f"/255, augment, K): median {np.median(times[1:]):.3f} ms, all "
+          f"{[round(t, 3) for t in times]} ms")
+
+    t0 = time.perf_counter()
+    try:
+        path = NL.build()
+    except RuntimeError as e:
+        if "jpeglib.h: No such file" not in str(e):
+            raise
+        print(f"fast pipeline: the native loader does not build on this "
+              f"machine (no libjpeg headers), so --fast_pipeline raises here: "
+              f"{' | '.join(str(e).splitlines()[:3])[:400]}")
+        return False
+    print(f"fast pipeline: native loader {path} built in "
+          f"{time.perf_counter() - t0:.2f} s (g++ "
+          f"{NL.build_log.get('seconds', 0.0):.2f} s: "
+          f"{NL.build_log.get('command', 'found built')})")
+    if path.parent != NL.BUILD_DIR or NL.BUILD_DIR.parent.name != "build":
+        raise AssertionError(f"fast pipeline: library at {path}")
+    with tempfile.TemporaryDirectory() as tmp:
+        arr = (rng.rand(128, 192, 3) * 255).astype(np.uint8)
+        for _ in range(4):
+            arr = (arr.astype(np.float32) / 2 + np.roll(arr, 1, 0) / 4
+                   + np.roll(arr, 1, 1) / 4).astype(np.uint8)
+        p = os.path.join(tmp, "img.jpg")
+        Image.fromarray(arr).save(p, quality=95)
+        full = NL.decode_resize(p, 192, 128)
+        pil = np.asarray(Image.open(p).convert("RGB"))
+        small = NL.decode_resize(p, 96, 64)
+        pil_small = np.asarray(Image.open(p).convert("RGB").resize(
+            (96, 64), Image.BILINEAR)).astype(np.float32)
+        batch = NL.decode_resize_batch([p, os.path.join(tmp, "missing.jpg")],
+                                       96, 64, 2)
+        mad = np.abs(small.astype(np.float32) - pil_small).mean()
+        print(f"fast pipeline: decode at the native size equal to PIL's "
+              f"{np.array_equal(full, pil)}; resized mean |d| vs PIL bilinear "
+              f"{mad:.3f} (tol 12); missing file blank {not batch[1].any()}")
+        if not (np.array_equal(full, pil) and mad < 12.0 and not batch[1].any()
+                and np.array_equal(batch[0], small)):
+            raise AssertionError("fast pipeline: the native decode disagrees with PIL")
+    return True
+
+
+def train_cli_fast(classic_rate, built):
+    """The training CLI of `train_cli` under `--fast_pipeline --decode_cache
+    cache` (name "fast"), in-process, with its checks (`_check_cli_run`):
+    the decode cache's files exist and every frame is present when epoch 1
+    starts; its loop rate beside the threaded loader's (`classic_rate`,
+    images/s). Returns the run's counts. Where the native loader does not
+    build (`built` False) the CLI must raise with g++'s message; returns
+    None."""
+    import os
+
+    import torch
+
+    from ppeadepth_tpu_torch.data import fast_pipeline
+
+    args = _cli_args(["--compute_dtype", "bfloat16", "--weights_init", "scratch",
+                      "--num_epochs", str(TRAIN_EPOCHS), "--validate_every",
+                      str(VALIDATE_EVERY), "--log_dir", "ckpt", "--name", "fast",
+                      "--pytorch_random_seed", "0", "--load_weights_folder", "seed",
+                      "--fast_pipeline", "--decode_cache", "cache"])
+    print("fast CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
+    if not built:
+        from ppeadepth_tpu_torch.train import __main__ as cli
+
+        try:
+            cli.main(args)
+        except RuntimeError as e:
+            if "jpeglib.h: No such file" not in str(e):
+                raise
+            print("fast CLI: raises without the native loader, as it must "
+                  "(no fallback)")
+            return None
+        raise AssertionError("fast CLI: trained without its native loader")
+    pipeline = fast_pipeline.FastDecodePipeline
+    set_epoch, cache_at = pipeline.set_epoch, {}
+
+    def recording(self, epoch):
+        c = self.cache
+        cache_at[epoch] = (int(c.present.sum()), len(c.present),
+                           os.path.isfile(c.data_path))
+        return set_epoch(self, epoch)
+
+    pipeline.set_epoch = recording
+    steps, vals = [], []
+    try:
+        trainer, wall, counts = _run_cli(args, steps, vals)
+    finally:
+        pipeline.set_epoch = set_epoch
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = TRAIN_EPOCHS * N_TRAIN // EVAL_BATCH
+    _check_cli_run("fast CLI", TRAIN_B, trainer, steps, counts, n_steps,
+                   VALIDATE_EVERY, N_TEST, os.path.join("ckpt", "fast"), "fast")
+    present, n, exists = cache_at.get(1, (0, 0, False))
+    print(f"fast CLI: decode cache at the start of epoch 1: {present} of {n} "
+          f"frames present, data file {exists}; "
+          f"{sorted(os.listdir('cache'))}")
+    if not (exists and n and present == n and cache_at[0][0] == 0):
+        raise AssertionError(f"fast CLI: decode cache {cache_at}")
+    rate = _loop_rate("fast CLI", steps, vals, wall, peak)
+    print(f"fast CLI: --fast_pipeline {rate / EVAL_BATCH:.3f} steps/s against "
+          f"the threaded loader's {classic_rate / EVAL_BATCH:.3f} in this run "
+          f"({rate / classic_rate:.3f}x)")
+    return counts
+
+
 def _category(name):
     n = name.lower()
     for key, cat in (("lk_dwconv", "kernel A (lk_dwconv; forward and dx)"),
@@ -2578,6 +2946,14 @@ def main():
     lk3_ddad = check_lk_pallas(dev, rng, DDAD_B, N_DDAD)
     c_ddad = check_plane_sweep(dev, rng, EVAL_BATCH, DDAD_B, (torch.float32,))
     check_dyn_volume(dev, rng)
+    # the legacy eval's C (f32, C=64) and a --grad_accum 2 microbatch's
+    # shapes of #2, C and D (B=6, stage 1)
+    c_ori = check_plane_sweep(dev, rng, EVAL_BATCH, SHIPPED_B, (torch.float32,),
+                              channels=64)
+    lk2_mb = check_lk_train(dev, rng, TRAIN_B, MICRO_BATCH)
+    c_mb = check_plane_sweep(dev, rng, MICRO_BATCH, SHIPPED_B, (torch.bfloat16,))
+    d_mb = check_warp(dev, rng, SHIPPED_B, MICRO_BATCH)
+    loader_built = check_fast_pipeline(dev)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -2607,12 +2983,23 @@ def main():
         profile_serving("predict_depth", lambda img, _: sess.predict_depth(img),
                         requests)
     del sess, cpu
+    walls = {}
     train_parity(sd, dev)
-    by_path["train_step"] = train_steps(sd, dev, profile)
+    by_path["train_step"] = train_steps(sd, dev, profile, walls=walls)
+    # --grad_accum 2: the stage-1 step as two microbatches of 6
+    train_parity(sd, dev, ACCUM_B, "accum parity", ACCUM_PARITY_BATCH)
+    by_path["train_step_accum"] = train_steps(sd, dev, False, ACCUM_B, "accum",
+                                              ACCUM_STEPS, walls)
+    (m1, p1), (m2, p2) = walls["train"], walls["accum"]
+    print(f"--grad_accum 2 against stage 1 (B={TRAIN_BATCH}, bf16, this run): "
+          f"median {m2:.3f} against {m1:.3f} ms/step ({m2 / m1:.3f}x), peak "
+          f"{p2 / 2**30:.3f} against {p1 / 2**30:.3f} GiB; launches a step "
+          f"{by_path['train_step_accum']} against {by_path['train_step']}")
     sd2 = _stage2_state_dict(sd, STAGE2_B)
     train_parity(sd2, dev, STAGE2_B, "stage-2 parity")
     by_path["train_step_stage2"] = train_steps(sd2, dev, profile, STAGE2_B,
                                                "stage2")
+    train_steps(sd2, dev, False, STAGE2_B.replace(grad_accum=2), "stage2 accum", 1)
     # --dyn_cv: the stage-2 network with the DynamicDepth volume
     train_parity(sd2, dev, DYN_B, "dyn parity")
     by_path["train_step_dyn"] = train_steps(sd2, dev, profile, DYN_B, "dyn")
@@ -2631,12 +3018,16 @@ def main():
               f"{time.perf_counter() - t0:.2f} s")
         os.chdir(root)
         try:
-            trainer, final, by_path["train_cli"] = train_cli(sd, dev)
+            trainer, final, by_path["train_cli"], rate = train_cli(sd, dev)
             check_resume(trainer, final)
             del trainer
             by_path["eval_pallas"] = eval_cli(final, profile)
             by_path["ablation"] = ablation_cli(final)
             by_path["eval_ddad"] = eval_cli(final, False, "ddad")
+            by_path["eval_ori"] = eval_ori_cli()
+            fast = train_cli_fast(rate, loader_built)
+            if fast is not None:
+                by_path["train_cli_fast"] = fast
             # stage 2 from the KITTI run's final checkpoint, its CityScapes
             # eval, and serving its checkpoint
             cs_final, by_path["train_cli_stage2"] = train_cli_stage2(final)
@@ -2651,6 +3042,9 @@ def main():
     d_cs_entry = dict(d_cs["forward"], **{
         f"backward_{k}": v for k, v in d_cs["backward"].items()},
         backward_launches=by_path["train_step_stage2"]["warp_bwd"])
+    d_mb_entry = dict(d_mb["forward"], **{
+        f"backward_{k}": v for k, v in d_mb["backward"].items()},
+        backward_launches=by_path["train_step_accum"]["warp_bwd"])
     entries = []
     for entry, kname, src, replaces, res, per, path in (
             ("lk_dwconv", "lk_dwconv", "lk_dwconv.cu", "banded_conv.py:287", a,
@@ -2690,7 +3084,21 @@ def main():
              "eval_ddad"),
             ("plane_sweep (DDAD)", "plane_sweep", "plane_sweep.cu",
              "cost_volume_mxu.py:149", c_ddad,
-             "call ([12,80,120,128] f32, two per DDAD eval batch)", "eval_ddad")):
+             "call ([12,80,120,128] f32, two per DDAD eval batch)", "eval_ddad"),
+            ("plane_sweep (legacy eval)", "plane_sweep", "plane_sweep.cu",
+             "cost_volume_mxu.py:149", c_ori,
+             "call ([12,48,160,64] f32, one per legacy eval batch)", "eval_ori"),
+            ("lk_dwconv_dx (grad_accum 2)", "lk_dwconv_dx", "lk_dwconv.cu",
+             "banded_conv.py:152", lk2_mb,
+             "microbatch (B=6, bf16) of a --grad_accum 2 step: 100 forward + "
+             "96 dx calls of kernel A; the step runs two", "train_step_accum"),
+            ("plane_sweep (grad_accum 2)", "plane_sweep", "plane_sweep.cu",
+             "cost_volume_mxu.py:149", c_mb,
+             "call ([6,48,160,128] bf16, one per microbatch)", "train_step_accum"),
+            ("warp_fwd (grad_accum 2)", "warp_fwd", "warp_border.cu",
+             "warp_mxu.py:269", d_mb_entry,
+             "call ([12,192,640,3], one per branch per microbatch; backward_* "
+             "the backward's)", "train_step_accum")):
         entries.append({
             "name": entry, "route": "cuda",
             "source": f"ppeadepth_tpu_torch/csrc/{src}",

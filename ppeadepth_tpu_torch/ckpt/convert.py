@@ -5,6 +5,9 @@ The port's counterpart of `ppeadepth_tpu/ckpt/torch_import.export_state_dict`
 and torch only. Input is the nested dicts of numpy arrays (`params`,
 `batch_stats`) of a flax RepDepth (or any of its subtrees); output loads
 into the port's modules with `load_state_dict(strict=True)`.
+`legacy_state_dict_from_jax` renames further into the legacy ManyDepth
+files' names (the inverse of `translate_legacy_state_dict`,
+torch_import.py:196-232).
 
 Layout transforms:
   conv      flax HWIO [kh, kw, I, O]  -> torch OIHW [O, I, kh, kw]
@@ -91,4 +94,30 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tens
                 elif a.ndim == 2:
                     a = a.T
             out[f"{name}.{tname}" if name else tname] = torch.tensor(a)
+    return out
+
+
+def legacy_state_dict_from_jax(params: Dict, batch_stats: Dict,
+                               kind: str) -> Dict[str, torch.Tensor]:
+    """`state_dict_from_jax` of a JAX `models/resnet_matching` tree under
+    the legacy ManyDepth files' names, which `models.resnet_matching`
+    uses: kind "encoder" (ResnetEncoderMatching: conv1 / bn1 ->
+    layer0.0 / layer0.1, layer1.i -> layer1.1.i behind the max-pool) or
+    "decoder" (DepthDecoder: upconv_0.i / upconv_1.i -> decoder.2(4-i) /
+    decoder.2(4-i)+1, dispconvs.s -> decoder.10+s)."""
+    if kind not in ("encoder", "decoder"):
+        raise ValueError(f"kind must be 'encoder' or 'decoder', got {kind!r}")
+    out = {}
+    for name, v in state_dict_from_jax(params, batch_stats).items():
+        if kind == "encoder":
+            name = re.sub(r"^conv1\.", "layer0.0.", name)
+            name = re.sub(r"^bn1\.", "layer0.1.", name)
+            name = re.sub(r"^layer1\.(\d+)\.", r"layer1.1.\1.", name)
+        else:
+            m = re.match(r"^(upconv_[01]|dispconvs)\.(\d+)\.(.*)$", name)
+            if m:
+                part, i, rest = m.group(1), int(m.group(2)), m.group(3)
+                n = 10 + i if part == "dispconvs" else 2 * (4 - i) + int(part[-1])
+                name = f"decoder.{n}.{rest}"
+        out[name] = v
     return out

@@ -23,15 +23,23 @@ one launch per branch with the frames stacked on the batch axis, as JAX
 does), the large-kernel convs through kernel #2
 (`kernels.lk_conv.lk_depthwise_train`).
 
+`--grad_accum N` (JAX `stack_microbatches` :338 and the scan :385-420)
+runs N microbatches, microbatch i the strided samples i::N, each with its
+own draws: a forward and a backward each, their gradients summed in
+`.grad` and divided by N once (JAX sums, then divides), BN running
+statistics updated once per microbatch in order, the metrics and the
+teacher depth's min/max averaged over the microbatches; Adam, the
+schedule and the bin EMA step once.
+
 Options the JAX package needs to fit 16 GB of HBM (`remat_loss`,
 `remat_policy`, `remat_pose`, `frozen_bf16`) are accepted and do nothing
-here; `grad_accum > 1` is not ported.
+here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -104,6 +112,16 @@ def create_train_state(model, opt, *, device="cuda",
         min_depth_bin=torch.tensor(0.1, device=device),
         max_depth_bin=torch.tensor(10.0, device=device),
         generator=generator)
+
+
+def split_microbatches(inputs: Dict, n: int) -> List[Dict]:
+    """The n microbatches of a batch dict: microbatch i takes the strided
+    samples i::n of every entry (JAX `stack_microbatches`), as contiguous
+    tensors; the batch itself when n is 1."""
+    if n == 1:
+        return [inputs]
+    return [{k: v[i::n].contiguous() for k, v in inputs.items()}
+            for i in range(n)]
 
 
 def batch_to_device(batch: Dict, device) -> Dict:
@@ -238,42 +256,59 @@ def make_train_step(model, opt, optimizer, scheduler=None):
     """train_step(state, batch, draws=None) -> (state, metrics).
 
     batch: the JAX batch dict (`("color", f, 0)`, `("color_aug", f, 0)`
-    NHWC, `("K", s)`, `("inv_K", s)`); draws: `StepDraws`, or None to draw
-    from `state.generator`. One update of `optimizer` (and `scheduler`,
-    e.g. `schedule.make_optimizer`'s LambdaLR); gradients stay in the
+    NHWC, `("K", s)`, `("inv_K", s)`) of the whole step; draws: one
+    `StepDraws` per microbatch (`opt.grad_accum` of them, a bare StepDraws
+    when there is one), or None to draw them in order from
+    `state.generator`. One update of `optimizer` (and `scheduler`, e.g.
+    `schedule.make_optimizer`'s LambdaLR); gradients stay in the
     parameters' `.grad` until the next step. metrics: 0-d tensors under
     the JAX keys, with `depth_bins/min` and `depth_bins/max`."""
-    if opt.grad_accum > 1:
-        raise NotImplementedError("--grad_accum > 1 is not ported yet")
     if opt.compute_dtype not in _COMPUTE:
         raise ValueError(f"compute_dtype must be one of {sorted(_COMPUTE)}")
+    n = opt.grad_accum
     update_bins = not opt.freeze_teacher_and_pose and not opt.notadabins
     loss_fn = make_loss_fn(model, opt)
 
-    def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None):
-        inputs = batch_to_device(batch, state.device)
+    def train_step(state: TrainState, batch,
+                   draws: Union[StepDraws, Sequence[StepDraws], None] = None):
+        micro = split_microbatches(batch_to_device(batch, state.device), n)
         if draws is None:
-            B = inputs[("color", 0, 0)].shape[0]
-            draws = draw(state.generator, B, opt.height, opt.width)
+            B = micro[0][("color", 0, 0)].shape[0]
+            draws = [draw(state.generator, B, opt.height, opt.width)
+                     for _ in micro]
+        elif isinstance(draws, StepDraws):
+            draws = [draws]
+        if len(draws) != n:
+            raise ValueError(f"{len(draws)} StepDraws for {n} microbatches")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        total, metrics, mono_depth = loss_fn(
-            inputs, state.min_depth_bin, state.max_depth_bin, draws)
-        total.backward()
+        per = []
+        for inputs, dr in zip(micro, draws):
+            total, metrics, mono_depth = loss_fn(
+                inputs, state.min_depth_bin, state.max_depth_bin, dr)
+            total.backward()
+            d = mono_depth.detach()
+            per.append({"dmin": d.amin(dim=(1, 2, 3)).mean(),
+                        "dmax": d.amax(dim=(1, 2, 3)).mean(),
+                        **{k: v.detach() for k, v in metrics.items()}})
+        metrics = per[0]
+        if n > 1:
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(n)
+            metrics = {k: torch.stack([m[k] for m in per]).mean()
+                       for k in metrics}
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
 
+        dmin, dmax = metrics.pop("dmin"), metrics.pop("dmax")
         new_min, new_max = state.min_depth_bin, state.max_depth_bin
         if update_bins:
-            with torch.no_grad():
-                d = mono_depth.detach()
-                dmin = d.amin(dim=(1, 2, 3)).mean()
-                dmax = d.amax(dim=(1, 2, 3)).mean()
-                dmin = torch.clamp(dmin * 0.9, min=opt.min_depth)
-                new_min = state.min_depth_bin * 0.99 + dmin * 0.01
-                new_max = state.max_depth_bin * 0.99 + dmax * 1.1 * 0.01
-        metrics = {k: v.detach() for k, v in metrics.items()}
+            dmin = torch.clamp(dmin * 0.9, min=opt.min_depth)
+            new_min = state.min_depth_bin * 0.99 + dmin * 0.01
+            new_max = state.max_depth_bin * 0.99 + dmax * 1.1 * 0.01
         metrics["depth_bins/min"] = new_min
         metrics["depth_bins/max"] = new_max
         return TrainState(step=state.step + 1, min_depth_bin=new_min,

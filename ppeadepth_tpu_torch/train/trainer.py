@@ -7,13 +7,18 @@ CityScapes preset, the decoder adapters with their freezing, and a warm
 start that takes the stage-1 weights, BN statistics and depth bins and
 starts at step 0 with a fresh Adam.
 
+`--grad_accum N` splits each batch into N microbatches inside the step
+(train/step.py); a step is still one full batch, so `steps_per_epoch`
+and the schedule count full batches, as in JAX. `--fast_pipeline
+[--decode_cache DIR]` feeds the step from `data.fast_pipeline`: native
+decode on the host, then the upload and the augmentation on the device,
+with draws from a device generator of their own.
+
 Differences from the JAX Trainer: one device and no mesh; the JAX
 package's automatic `--remat_loss` guard for a 16 GB TPU has no
 counterpart; a plain resume (no `--ktf`) takes the step count from the
-checkpoint's track.json, where the JAX Trainer keeps its fresh step. Not
-ported yet, and raising: `--grad_accum > 1` and `--fast_pipeline` (with
-its device-side augmentation and native loader). Logging is stdout and
-`metrics.jsonl` under the JAX keys.
+checkpoint's track.json, where the JAX Trainer keeps its fresh step.
+Logging is stdout and `metrics.jsonl` under the JAX keys.
 """
 
 from __future__ import annotations
@@ -51,17 +56,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_ported(opt) -> None:
-    """Raise for the options whose paths are not ported yet."""
-    for flag, on, slice_name in (
-            ("--grad_accum > 1", opt.grad_accum > 1, "gradient accumulation"),
-            ("--fast_pipeline", opt.fast_pipeline, "fast input pipeline")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet; it comes with the {slice_name} "
-                "slice")
-
-
 class Trainer:
     """opt: `options.Config` (or the JAX package's); splits_dir: holds
     <split>/{train,test}_files.txt and the GT depths of <eval_split>
@@ -72,7 +66,6 @@ class Trainer:
 
     def __init__(self, opt, splits_dir: str = "./splits", device="cuda"):
         self.opt = opt = opt.with_mode_presets()
-        check_ported(opt)
         self.device = device = resolve_device(device)
         self.splits_dir = splits_dir
         self.log_path = os.path.join(opt.log_dir, opt.name)
@@ -98,9 +91,17 @@ class Trainer:
             val_ds = val_cls(
                 val_path, readlines(fpath.format("test")), opt.height,
                 opt.width, [0, -1], 4, is_train=False, img_ext=img_ext)
-            self.train_loader = D.DataLoader(
-                train_ds, opt.batch_size, shuffle=True,
-                num_workers=opt.num_workers)
+            if opt.fast_pipeline:
+                from ..data.fast_pipeline import FastDecodePipeline
+
+                self.train_loader = FastDecodePipeline(
+                    train_ds, opt.batch_size, sorted(set(frames_to_load)),
+                    shuffle=True, n_threads=opt.num_workers,
+                    cache_dir=opt.decode_cache)
+            else:
+                self.train_loader = D.DataLoader(
+                    train_ds, opt.batch_size, shuffle=True,
+                    num_workers=opt.num_workers)
             self.val_loader = D.DataLoader(
                 val_ds, opt.batch_size, shuffle=False,
                 num_workers=opt.num_workers, drop_last=False)
@@ -120,6 +121,8 @@ class Trainer:
         self.state = create_train_state(
             self.model, opt, device=device,
             generator=torch.Generator(device).manual_seed(seed))
+        # the fast pipeline's augmentation draws
+        self.aug_generator = torch.Generator(device).manual_seed(seed + 1)
         labels = freeze.param_labels(self.model, opt)
         freeze.print_num_param(self.model, labels)
         lr = 1e-6 if opt.freeze_pose else opt.learning_rate
@@ -135,6 +138,8 @@ class Trainer:
 
     def close(self) -> None:
         self._metrics_file.close()
+        if hasattr(self.train_loader, "close"):
+            self.train_loader.close()
 
     # ------------------------------------------------------------------ #
 
@@ -182,8 +187,7 @@ class Trainer:
         start_epoch = step // max(self.steps_per_epoch, 1)
         for epoch in range(start_epoch, opt.num_epochs):
             self.train_loader.set_epoch(epoch)
-            for batch in D.device_prefetch(iter(self.train_loader),
-                                           self.device):
+            for batch in self._batches():
                 self.state, metrics = self.step_fn(self.state, batch)
                 step = self.state.step
                 if step == 250 and opt.validate_every > 0:
@@ -201,6 +205,21 @@ class Trainer:
                     self.validate(step)
                     self.save_model(f"s{step}")
         self.save_model("final")
+
+    def _batches(self):
+        """The epoch's training batches on the device: the fast pipeline's
+        decoded frames through `prepare_batch` (color_scales=1: the step
+        reads the colours of scale 0 only), or the loader's through
+        `device_prefetch`."""
+        opt = self.opt
+        if not opt.fast_pipeline:
+            yield from D.device_prefetch(iter(self.train_loader), self.device)
+            return
+        from ..data.fast_pipeline import prepare_batch
+
+        for frames, K in self.train_loader:
+            yield prepare_batch(frames, K, self.aug_generator, opt.height,
+                                opt.width, 4, 1, self.device)
 
     def validate(self, step: int):
         if self.val_loader is None:

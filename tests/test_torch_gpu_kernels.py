@@ -385,6 +385,8 @@ def _near_boundary(A, t, bins, H, W):
     (8, 128, 48, 160, 96),       # the student's main path, 640x192
     (12, 128, 48, 128, 96),      # the stage-2 step, 512x192
     (12, 128, 80, 120, 96),      # the DDAD eval, 480x320
+    (2, 64, 48, 160, 96),        # the legacy eval's ResNet-18 layer 1
+    (6, 128, 48, 160, 96),       # a --grad_accum 2 microbatch (B=12 / 2)
     (2, 16, 13, 27, 40),         # H*W not a multiple of 8 pixels, D of 32
     (1, 256, 11, 21, 33),        # the widest C
     (2, 192, 48, 160, 96),       # rep_size l's stage 0

@@ -2,8 +2,8 @@
 switches off, each against its own statement: matching augmentation from
 given uniforms (a numpy statement of repdepth.py:251-267), drop path
 (per-sample mask, 1/keep scaling, the linspace schedule per block),
-activation checkpointing, a bf16 step, and the StepLR schedule and the
-options that are not ported. No JAX compile: a file of its own, so it runs
+activation checkpointing (also under --grad_accum 2), a bf16 step, and
+the StepLR schedule. No JAX compile: a file of its own, so it runs
 beside the parity step."""
 
 import numpy as np
@@ -15,7 +15,8 @@ from ppeadepth_tpu_torch.models.blocks import DropPath
 from ppeadepth_tpu_torch.models.repdepth import matching_augmentation
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS, RepLKNet
 from ppeadepth_tpu_torch.train.schedule import make_optimizer, step_lr_factor
-from ppeadepth_tpu_torch.train.step import create_train_state, make_train_step
+from ppeadepth_tpu_torch.train.step import (
+    create_train_state, draw, make_train_step)
 from tests.test_train_step import make_batch
 from tests.torch_parity import TINY
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -77,7 +78,7 @@ def test_drop_path_semantics():
     assert all(r[2 * i] == r[2 * i + 1] for r in got for i in range(len(r) // 2))
 
 
-def _tiny_step(opt, seed=0, steps=1):
+def _tiny_step(opt, seed=0, steps=1, batch=B):
     """A port step on seeded random weights at the tiny config; returns
     (model, metrics)."""
     model = RepDepth(opt)
@@ -87,7 +88,7 @@ def _tiny_step(opt, seed=0, steps=1):
     optim, sched = make_optimizer(
         [p for p in model.parameters() if p.requires_grad], LR, 100)
     step = make_train_step(model, opt, optim, sched)
-    batch = make_batch(opt, B)
+    batch = make_batch(opt, batch)
     for _ in range(steps):
         state, metrics = step(state, batch)
     return model, metrics
@@ -127,11 +128,39 @@ def test_bfloat16_step_keeps_f32_state():
 
 def test_step_lr_schedule_and_options():
     """StepLR per epoch as the optax schedule: factor gamma ** (epoch //
-    15); grad_accum > 1 is not ported (stage-2 freezing is held to JAX in
-    tests/test_torch_stage2.py)."""
+    15), one scheduler step per full batch under --grad_accum 2 (stage-2
+    freezing is held to JAX in tests/test_torch_stage2.py); a step under
+    --grad_accum 2 wants one StepDraws per microbatch."""
     f = step_lr_factor(steps_per_epoch=10)
     assert [f(s) for s in (0, 149, 150, 299, 300)] == [1, 1, 0.1, 0.1, 0.1 ** 2]
-    model = RepDepth(TINY)
-    optim, sched = make_optimizer(model.parameters(), LR, 100)
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, TINY.replace(grad_accum=2), optim, sched)
+    opt = OPT.replace(grad_accum=2)
+    model = RepDepth(opt)
+    init_weights(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model, opt, device="cpu")
+    optim, sched = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad], LR, 100)
+    step = make_train_step(model, opt, optim, sched)
+    state, _ = step(state, make_batch(opt, 4))
+    assert state.step == 1 and sched.last_epoch == 1
+    assert optim.state_dict()["state"][0]["step"].item() == 1
+    with pytest.raises(ValueError, match="2 microbatches"):
+        step(state, make_batch(opt, 4), draws=draw(state.generator, 2, 64, 96))
+
+
+def test_use_checkpoint_under_grad_accum_updates_bn_per_microbatch():
+    """With activation checkpointing the held statistics of each block's
+    recompute leave one BN update per microbatch: under --grad_accum 2 the
+    running statistics and batch counters equal those of the step without
+    checkpointing, gradients within f32 rounding."""
+    opt = OPT.replace(grad_accum=2)
+    plain, m1 = _tiny_step(opt, batch=4)
+    ckpt, m2 = _tiny_step(opt.replace(use_checkpoint=True), batch=4)
+    assert m1["loss"].item() == m2["loss"].item()
+    g1, g2 = _grads(plain), _grads(ckpt)
+    for n in g1:
+        np.testing.assert_allclose(g2[n], g1[n], rtol=0, atol=1e-6, err_msg=n)
+    b2 = dict(ckpt.named_buffers())
+    for n, b in plain.named_buffers():
+        np.testing.assert_array_equal(b2[n].numpy(), b.numpy(), err_msg=n)
+        if n.endswith("replk.stages.0.blocks.0.prelkb_bn.num_batches_tracked"):
+            assert b.item() == 4  # current and lookup frames, two microbatches

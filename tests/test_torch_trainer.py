@@ -3,8 +3,9 @@ JAX compile): one epoch over a synthetic KITTI set on disk with a
 validation and checkpoints, `metrics.jsonl` under the JAX Trainer's keys,
 an exact resume, stage 2 (`--train_cs --dc --ktf` from that stage-1
 checkpoint, on a synthetic CityScapes set with its `cityscapes_eval`
-validation, and `--eval --eval_split cityscapes`), the unported options
-raising, and the CLI refusing to run without a card."""
+validation, and `--eval --eval_split cityscapes`), an epoch under
+`--grad_accum 2` and one under `--fast_pipeline --decode_cache`, and the
+CLI refusing to run without a card."""
 
 import json
 import os
@@ -214,10 +215,40 @@ def test_stage2_checkpoint_round_trips(stage2):
     assert all(e == e for e in (*errors, *mono))
 
 
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(fast_pipeline=True)])
-def test_unported_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(_opt("", str(tmp_path), **kw), device="cpu")
+@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(fast_pipeline=True)],
+                         ids=["grad_accum", "fast_pipeline"])
+def test_trainer_epoch_under_option(tmp_path, kw, monkeypatch):
+    """An epoch of 3 full-batch steps (B=2) under --grad_accum 2 or
+    --fast_pipeline --decode_cache: a metrics record under the JAX keys
+    each step, finite, and the final checkpoint at step 3; the fast
+    pipeline's decode cache written."""
+    root, splits = kitti_set(tmp_path, 6, 3)
+    cache = str(tmp_path / "cache")
+    opt = _opt(root, str(tmp_path / "ckpt"), **kw).replace(
+        validate_every=0, decode_cache=cache if kw.get("fast_pipeline") else "")
+    monkeypatch.setattr(trainer_mod, "LOG_EVERY", 1)
+    trainer = Trainer(opt, splits_dir=splits, device="cpu")
+    try:
+        assert trainer.steps_per_epoch == 3
+        trainer.train()
+    finally:
+        trainer.close()
+    assert trainer.state.step == 3
+    with open(os.path.join(trainer.log_path, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r.pop("prefix") for r in recs] == ["train"] * 3
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    for r in recs:
+        assert set(r) == {"step"} | JAX_TRAIN_KEYS
+        assert all(v == v and abs(v) < 1e6 for v in r.values())
+    with open(os.path.join(trainer.log_path, "smoke_final", "track.json")) as f:
+        assert json.load(f)["step"] == 3
+    if kw.get("fast_pipeline"):
+        names = os.listdir(cache)
+        assert any(n.endswith(".u8") for n in names)
+        (present,) = [n for n in names if n.endswith(".present")]
+        with open(os.path.join(cache, present), "rb") as f:
+            assert all(f.read())  # every frame of the epoch decoded once
 
 
 def test_cli_needs_a_card(tmp_path, monkeypatch):
