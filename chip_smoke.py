@@ -71,6 +71,18 @@ at the legacy eval's f32 C=64):
   * --dyn_cv: the dyn volume on the card against the CPU, then the stage-2
     f32 parity step and 1 + 5 bf16 steps under it (kernel C not launched,
     the dyn volume once a step), lookup frames with black patches;
+  * breadth (adpt_test 2 with the transition and input adapters in both
+    encoders, every adapter drawn non-zero): kernel B at the C/2 adapter's
+    4.5C hidden; the teacher and the student served in merged bf16 and the
+    teacher under adpt_test 1, 0, 5 and 6, against the CPU f32 forward
+    under `serve_drawn_adapters`' rule; one f32 step at B=2 against the
+    CPU's and 1 + 3 bf16 steps at B=12 (stage 1's launches);
+  * the legacy eval's ResNet-50 teacher (`eval_depth_ori --eval_teacher
+    --num_layers 50`) on the synthetic KITTI set against the CPU;
+  * data parallelism at world size 1 (`dp_world1`): the training CLI under
+    a process group over NCCL against the same run without one, f32, one
+    epoch of 3 steps, the collectives counted (two ranks on one card are
+    refused by NCCL; tests/test_torch_dp.py runs two on the CPU);
   * the stage-2 CLI on a synthetic CityScapes set (`--train_cs --dc --ktf
     --learning_rate 1e-5` from the KITTI run's final checkpoint: from step
     0, 2 epochs of 2 steps, a validation on the cityscapes_eval layout),
@@ -164,6 +176,19 @@ STAGE2_B = TRAIN_B.replace(train_cs=True, dc=True, dec_id=1, ktf=True,
 # neighbourhood, radius 1, threshold 0.7)
 DYN_B = STAGE2_B.replace(dyn_cv=True, cv_pool=True)
 ACCUM_B = TRAIN_B.replace(grad_accum=2)
+# Breadth: every adapter the JAX package offers, on the shipped network:
+# the block and ConvFFN adapters of adpt_test 2 (Linear-GELU-Linear, the
+# ConvFFN's C/2 wide, so kernel B's packed hidden is 4.5C), the transition
+# adapters (drawn, not zero) and the stem's input adapter, in both encoders;
+# the other variants (1 Linear, 0 Conv-Conv, 5 ConvFFN only, 6 blocks only)
+# served once each
+BREADTH = dict(trans=True, input=True, mono_trans=True, mono_input=True)
+BREADTH_B = SHIPPED_B.replace(adpt_test=2, **BREADTH)
+TRAIN_BREADTH = TRAIN_B.replace(adpt_test=2, **BREADTH)
+BREADTH_VARIANTS = (1, 0, 5, 6)
+BREADTH_STEPS = 3       # timed breadth training steps, after one warm-up step
+DP_EPOCHS = 1           # dp_world1: one epoch of the CLI, 3 steps of B=12
+DP_DRIFT_REL = 5e-3     # ... each step's loss against the plain run's
 DYN_REL_TOL = C_REL_TOL  # the dyn volume on the card vs the CPU, off the
                          # edge-mask boundaries: max|d| <= tol x max|ref|
 CHUNK_ITEMS = 4         # the dyn volume timed also at this many items a chunk
@@ -298,10 +323,11 @@ def check_lk_dwconv(dev, rng):
 B_WIDE = ((1536, 6, 20), (2048, 6, 20))
 
 
-def check_ffn_fused(dev, rng):
+def check_ffn_fused(dev, rng, adapter_div=4):
     """Kernel B against its plain version at the four stage shapes, with
     the adapter (the main path) and without it, and at the L/XL widths of
-    `B_WIDE`. The kernel runs on the packed operands (`pack_ffn`, as
+    `B_WIDE`; with adapter_div=2 (adpt_test 2's C/2 adapter, a packed
+    hidden of 4.5C) at the stage shapes with the adapter only. The kernel runs on the packed operands (`pack_ffn`, as
     `ConvFFN.fold` stores them) and is held against the plain version on
     the unpacked ones. Times and bounds are per teacher forward (the sum
     over its 24 calls, with the adapter); beside them the two packed
@@ -319,10 +345,11 @@ def check_ffn_fused(dev, rng):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst, ms, plain_ms, mm_ms, bound = 0.0, 0.0, 0.0, 0.0, _Bound()
     cases = [(C, H, W, blocks, True) for C, H, W, _, blocks in _stage_shapes()]
-    cases += [c[:4] + (False,) for c in cases]
-    cases += [(C, H, W, 0, True) for C, H, W in B_WIDE]
+    if adapter_div == 4:
+        cases += [c[:4] + (False,) for c in cases]
+        cases += [(C, H, W, 0, True) for C, H, W in B_WIDE]
     for C, H, W, blocks, adapter in cases:
-        M, H4, CA = BATCH * H * W, 4 * C, C // 4
+        M, H4, CA = BATCH * H * W, 4 * C, C // adapter_div
         f32 = torch.float32
         p = FoldedFFN(t((C, H4), C ** -0.5), t((H4,), 0.1, f32),
                       t((H4, C), H4 ** -0.5), t((C,), 0.1, f32),
@@ -341,7 +368,7 @@ def check_ffn_fused(dev, rng):
         mx, mean = diff.max().item(), diff.mean().item()
         Hp = pk.w_up.shape[0]
         tiles = ffn_plan(M, C, Hp, sms)
-        tag = f"kernel B  [{M},{C}] adapter={adapter}"
+        tag = f"kernel B  [{M},{C}] adapter={CA if adapter else 0}"
         print(f"{tag}: max|d|={mx:.3e} max rel {mx / scale:.3e} "
               f"mean rel {mean / scale:.3e} (tol {B_MAX_REL_TOL:g} / "
               f"{B_MEAN_REL_TOL:g}); Hp={Hp}, tiles up/down {tiles}")
@@ -1022,7 +1049,9 @@ def _random_state_dict(opt):
     """Seeded random weights of the whole RepDepth in training form.
 
     Conv/linear weights come from `init_weights`; adapter `D_fc2` weights
-    are drawn from a numpy seed (not zero) so the adapter branches count.
+    are drawn from a numpy seed (not zero) so the adapter branches count
+    (0.05 N for a Linear, 0.05 / 3 N for a Conv3x3 of the same hidden
+    width).
     BN running statistics are then calibrated by one train-mode pass of
     seeded random images through each network's own forward (teacher,
     student with a fixed pose, pose net), as a trained network's statistics
@@ -1051,7 +1080,9 @@ def _random_state_dict(opt):
     with torch.no_grad():
         for name, p in model.named_parameters():
             if "D_fc2" in name and name.endswith("weight"):
-                p.copy_(draw(p.shape, 0.05))
+                # 0.05 for a Linear; a Conv3x3 over the same hidden width
+                # a third of it, so each tap set adds what a Linear adds
+                p.copy_(draw(p.shape, 0.05 * (p.shape[1] / p[0].numel()) ** 0.5))
             elif name.endswith("pw2.bn.weight"):
                 p.copy_(torch.from_numpy(
                     rng.rand(*p.shape).astype("float32") * 0.05 + 0.05))
@@ -2169,6 +2200,219 @@ def serve_drawn_adapters(sd2):
     return counts
 
 
+def serve_breadth(sd_b):
+    """Merged bf16 serving with every breadth adapter (`BREADTH_B`,
+    adpt_test 2, weights `sd_b` with every adapter drawn non-zero) on the
+    card, one B=8 request: the teacher and the student, then the teacher
+    under each other variant of `BREADTH_VARIANTS` (with the transition and
+    input adapters too, on weights of their own from `_random_state_dict`);
+    each with its launch counts (kernels A and B per
+    block, C once for the student) and against the CPU f32 forward, the mean
+    held to BF16_PLAIN_MARGIN x that of the same bf16 forward by the plain
+    versions on the CPU (`_compare_disp`), as `serve_drawn_adapters` does:
+    the drawn transition adapters put these weights where that rule, not
+    DISP_MEAN_TOL, applies. Returns the counts by path."""
+    import numpy as np
+
+    from ppeadepth_tpu_torch.serve import InferenceSession
+
+    rng = np.random.RandomState(SEED + 11)
+    img = rng.rand(BATCH, BREADTH_B.height, BREADTH_B.width, 3).astype("float32")
+    requests = [(img, np.roll(img, (2, 5), (1, 2)).copy())]
+    bins = dict(min_depth_bin=DEPTH_BINS[0], max_depth_bin=DEPTH_BINS[1])
+    counts = {}
+    for v in (2,) + BREADTH_VARIANTS:
+        opt = BREADTH_B.replace(adpt_test=v)
+        sd = sd_b if v == 2 else _random_state_dict(opt)
+        t0 = time.perf_counter()
+        card, cpu, plain = (
+            InferenceSession(opt, sd, device=dev, dtype=dtype, **bins)
+            for dev, dtype in (("cuda", "bfloat16"), ("cpu", "float32"),
+                               ("cpu", "bfloat16")))
+        print(f"breadth adpt_test {v}: sessions built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        counts[f"predict_depth_breadth_{v}"] = serve_teacher(
+            card, cpu, opt, requests, f"breadth adpt_test {v} teacher", plain)
+        if v == 2:
+            counts["predict_depth_multi_breadth_2"] = serve_student(
+                card, cpu, opt, requests, "breadth adpt_test 2 student", plain)
+        del card, cpu, plain
+    return counts
+
+
+def eval_ori_r50():
+    """The legacy eval's ResNet-50 teacher (`eval_depth_ori --eval_teacher
+    --num_layers 50`, in-process) on the synthetic KITTI set in the current
+    directory: seeded mono_encoder.pth (Bottleneck ResNet-50) and
+    mono_depth.pth (the Monodepth2 decoder on its 64-2048 widths), BN
+    statistics calibrated by one train-mode pass at half the resolution;
+    no kernel launched (cuDNN convs), the card's f32 pass against the
+    port's CPU pass on the first 2 images (EVAL_CPU_REL_TOL). Returns its
+    counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch import eval_depth_ori as E
+    from ppeadepth_tpu_torch import kernels
+    from ppeadepth_tpu_torch.models.resnet import ResnetEncoder
+    from ppeadepth_tpu_torch.models.resnet_matching import DepthDecoder
+    from ppeadepth_tpu_torch.options import parse_args
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 13)
+    enc = ResnetEncoder(50)
+    nets = {"mono_encoder": enc, "mono_depth": DepthDecoder(enc.num_ch_enc)}
+    with torch.no_grad():
+        for net in nets.values():
+            for name, t in net.state_dict().items():
+                if not torch.is_floating_point(t) or "running" in name:
+                    continue
+                scale, shift = ((0.05, 0.0) if name.endswith("bias") else
+                                (0.1, 1.0) if t.dim() == 1 else
+                                (t[0].numel() ** -0.5, 0.0))
+                t.copy_(torch.from_numpy(
+                    rng.randn(*t.shape).astype("float32") * scale + shift))
+        bns = [m for net in nets.values() for m in net.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+        for m in bns:
+            m.reset_running_stats()
+            m.momentum = None  # one pass: running stats = batch stats
+        img = torch.from_numpy(rng.rand(
+            2, 3, SHIPPED_B.height // 2, SHIPPED_B.width // 2).astype("float32"))
+        for net in nets.values():
+            net.train()
+        nets["mono_depth"](enc(img))
+        for m in bns:
+            m.momentum = 0.1
+    os.makedirs("legacy50")
+    for name, net in nets.items():
+        torch.save(net.eval().state_dict(), os.path.join("legacy50", f"{name}.pth"))
+    print(f"eval_ori_r50: legacy ResNet-50 teacher written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    opt = parse_args(["--data_path", "kitti", "--eval_split", "smoke",
+                      "--load_weights_folder", "legacy50", "--height", "192",
+                      "--width", "640", "--batch_size", str(EVAL_BATCH),
+                      "--num_workers", "8", "--eval_teacher", "--num_layers",
+                      "50"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    d = E.predict_disps(opt, "splits", device="cuda")
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    _check_counts(counts, {k: 0 for k in counts}, "eval_ori_r50")
+    if d.shape != (N_TEST, opt.height, opt.width) or not np.isfinite(d).all():
+        raise AssertionError(f"eval_ori_r50: disparities {d.shape}, finite "
+                             f"{np.isfinite(d).all()}")
+    cpu = E.predict_disps(opt.replace(eval_split="smoke2"), "splits",
+                          device="cpu")
+    err, peak = np.abs(d[:2] - cpu).max(), np.abs(cpu).max()
+    errors = E.evaluate(opt, "splits", device="cuda")
+    print(f"eval_ori_r50: {N_TEST} images in {wall:.2f} s "
+          f"({wall / N_TEST * 1e3:.2f} ms an image, f32, B={EVAL_BATCH}); "
+          f"scaled disparity range [{d.min():.4f}, {d.max():.4f}]; card vs CPU "
+          f"on 2 images max|d|={err:.3e} max|ref|={peak:.3e} (tol "
+          f"{EVAL_CPU_REL_TOL:g} x max|ref|); metrics {list(errors)}")
+    if not (err <= EVAL_CPU_REL_TOL * peak and np.isfinite(errors).all()):
+        raise AssertionError("eval_ori_r50: the card's pass disagrees with "
+                             "the CPU's")
+    return counts
+
+
+def dp_world1():
+    """Data parallelism at world size 1 on the card: the training CLI from
+    the seed checkpoint in the current directory (`train_cli`'s), f32 (TF32
+    off), DP_EPOCHS epoch of B=12, run twice in-process (`_run_cli`):
+    without a process group, then under one over NCCL (torchrun's
+    variables set in this process: PPEA_DISTRIBUTED=1, RANK 0, WORLD_SIZE
+    1, a free port), where every BN is a GlobalBatchNorm and the step
+    all-reduces its loss sums, gradients and metrics. The first step's
+    metrics within PARITY_METRIC_TOL of the plain run's and every step's
+    loss within DP_DRIFT_REL relative, each step's launches
+    `_expected_launches`, the all-reduces and broadcasts counted
+    (`parallel.dist.collective_counts`); the medians and peaks of both runs
+    printed. Returns the process-group run's counts."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from ppeadepth_tpu_torch.parallel import dist
+
+    opt = TRAIN_B.replace(compute_dtype="float32")
+    expected = _expected_launches(opt)
+    runs = {}
+    for tag in ("plain", "dp"):
+        env = {}
+        if tag == "dp":
+            sock = socket.socket()
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+            sock.close()
+            env = dict(PPEA_DISTRIBUTED="1", RANK="0", WORLD_SIZE="1",
+                       LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        dist.collective_counts.clear()
+        args = _cli_args(["--compute_dtype", "float32", "--weights_init",
+                          "scratch", "--num_epochs", str(DP_EPOCHS),
+                          "--validate_every", "0", "--log_dir", "dp_ckpt",
+                          "--name", tag, "--pytorch_random_seed", "0",
+                          "--load_weights_folder", "seed"])
+        steps, vals = [], []
+        try:
+            trainer, wall, counts = _run_cli(args, steps, vals)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        peak = torch.cuda.max_memory_allocated()
+        collectives = dict(dist.collective_counts)
+        if dist.enabled():
+            raise AssertionError("dp_world1: the process group outlived the CLI")
+        for i, (_, _, launched, _, _) in enumerate(steps):
+            if launched != expected:
+                raise AssertionError(f"dp_world1 {tag} step {i}: launches "
+                                     f"{launched}, expected {expected}")
+        n_bn = sum(isinstance(m, dist.GlobalBatchNorm)
+                   for m in trainer.model.modules())
+        ms = [(e - s) * 1e3 for s, e, *_ in steps]
+        med = float(np.median(ms[1:]))
+        print(f"dp_world1 {tag}: {len(steps)} f32 steps B={EVAL_BATCH} "
+              f"640x192 in a {wall:.2f} s run; steps {[round(t, 3) for t in ms]} "
+              f"ms, median after the first {med:.3f} ms; peak device memory "
+              f"{peak} bytes ({peak / 2**30:.3f} GiB); GlobalBatchNorm modules "
+              f"{n_bn}; collectives {collectives}; losses "
+              f"{[round(m['loss'], 6) for *_, m, _ in steps]}")
+        runs[tag] = (steps, collectives, n_bn, counts)
+        del trainer
+    (s_plain, c_plain, n_plain, _), (s_dp, c_dp, n_dp, counts) = (
+        runs["plain"], runs["dp"])
+    if len(s_dp) != len(s_plain) or not s_plain:
+        raise AssertionError("dp_world1: the runs took different steps")
+    # the first step starts from the same weights; after it, entries whose
+    # gradient is near zero have moved lr of either sign in the two runs
+    # (tests/test_torch_train_step.py's four-step check: 5e-3 relative)
+    first = max(abs(s_plain[0][3][k] - s_dp[0][3][k]) for k in s_plain[0][3])
+    later = max(abs(a[3]["loss"] / b[3]["loss"] - 1)
+                for a, b in zip(s_plain, s_dp))
+    print(f"dp_world1: against the run without a process group, max |d metric| "
+          f"at the first step {first:.3e} (tol {PARITY_METRIC_TOL:g}), the "
+          f"loss's largest relative difference over {len(s_dp)} steps "
+          f"{later:.3e} (tol {DP_DRIFT_REL:g})")
+    if not (first <= PARITY_METRIC_TOL and later <= DP_DRIFT_REL
+            and c_plain == {} and n_plain == 0
+            and n_dp > 0 and c_dp.get("all_reduce", 0) > 0
+            and c_dp.get("broadcast", 0) > 0):
+        raise AssertionError("dp_world1: the process-group run disagrees with "
+                             "the plain run, or its collectives did not run")
+    return counts
+
+
 def check_dyn_volume(dev, rng, opt=DYN_B):
     """The DynamicDepth volume (`--dyn_cv`; plain torch, as JAX keeps it on
     lax, so no kernel) at the stage-2 step's shapes: B=TRAIN_BATCH, C=128,
@@ -2954,6 +3198,8 @@ def main():
     c_mb = check_plane_sweep(dev, rng, MICRO_BATCH, SHIPPED_B, (torch.bfloat16,))
     d_mb = check_warp(dev, rng, SHIPPED_B, MICRO_BATCH)
     loader_built = check_fast_pipeline(dev)
+    # adpt_test 2's ConvFFN adapter is C/2 wide: kernel B at a 4.5C hidden
+    b2 = check_ffn_fused(dev, rng, adapter_div=2)
 
     opt = SHIPPED_B
     sd = _random_state_dict(opt)
@@ -3005,6 +3251,24 @@ def main():
     by_path["train_step_dyn"] = train_steps(sd2, dev, profile, DYN_B, "dyn")
     by_path.update(serve_drawn_adapters(sd2))
     del sd2
+    # breadth: every adapter variant and the transition and input adapters,
+    # served and trained (launches as stage 1's)
+    t0 = time.perf_counter()
+    sd_b = _random_state_dict(BREADTH_B)
+    print(f"breadth: calibrated weights in {time.perf_counter() - t0:.2f} s")
+    by_path.update(serve_breadth(sd_b))
+    train_parity(sd_b, dev, TRAIN_BREADTH, "breadth parity")
+    by_path["train_step_breadth"] = train_steps(
+        sd_b, dev, False, TRAIN_BREADTH, "breadth", BREADTH_STEPS, walls)
+    del sd_b
+    (m1, p1), (mb, pb) = walls["train"], walls["breadth"]
+    print(f"breadth against stage 1 (B={TRAIN_BATCH}, bf16, this run): median "
+          f"{mb:.3f} against {m1:.3f} ms/step ({mb / m1:.3f}x), peak "
+          f"{pb / 2**30:.3f} against {p1 / 2**30:.3f} GiB")
+    if by_path["train_step_breadth"] != by_path["train_step"]:
+        raise AssertionError(f"breadth: launches a step "
+                             f"{by_path['train_step_breadth']}, stage 1's "
+                             f"{by_path['train_step']}")
 
     # the CLI: training with validation and checkpoints, resume, and --eval,
     # on a synthetic KITTI set in a temporary directory
@@ -3025,6 +3289,8 @@ def main():
             by_path["ablation"] = ablation_cli(final)
             by_path["eval_ddad"] = eval_cli(final, False, "ddad")
             by_path["eval_ori"] = eval_ori_cli()
+            by_path["eval_ori_r50"] = eval_ori_r50()
+            by_path["dp_world1"] = dp_world1()
             fast = train_cli_fast(rate, loader_built)
             if fast is not None:
                 by_path["train_cli_fast"] = fast
@@ -3051,6 +3317,10 @@ def main():
              "teacher forward (24 calls)", "predict_depth_multi"),
             ("ffn_fused", "ffn_fused", "ffn_fused.cu", "ffn_mxu.py:201", b,
              "teacher forward (24 calls)", "predict_depth_multi"),
+            ("ffn_fused (adpt_test 2)", "ffn_fused", "ffn_fused.cu",
+             "ffn_mxu.py:201", b2,
+             "teacher forward (24 calls) of adpt_test 2: the ConvFFN adapter "
+             "C/2 wide, a packed hidden of 4.5C", "predict_depth_breadth_2"),
             ("plane_sweep", "plane_sweep", "plane_sweep.cu",
              "cost_volume_mxu.py:149", c,
              "call (one per student request)", "predict_depth_multi"),

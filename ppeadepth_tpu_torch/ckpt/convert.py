@@ -9,6 +9,13 @@ into the port's modules with `load_state_dict(strict=True)`.
 files' names (the inverse of `translate_legacy_state_dict`,
 torch_import.py:196-232).
 
+Beyond the JAX rules: a PoseCNN's `conv_<i>` takes the reference's
+`net.<i>` (pose_cnn.py keeps its convs in `self.net`), a name the JAX
+importer does not map because JAX wires no PoseCNN. The transition
+adapters come out as `trans_adapters.<i>`: the list rule
+(torch_import.py:41-45) takes flax's `trans_adapters_<i>` before the
+bare-name rule (:58-59) could give `trans_adpt`.
+
 Layout transforms:
   conv      flax HWIO [kh, kw, I, O]  -> torch OIHW [O, I, kh, kw]
   depthwise flax [k, k, 1, C]         -> torch [C, 1, k, k]
@@ -29,6 +36,7 @@ _LIST_ATTR = re.compile(
     r"(stem|stages|blocks|transitions|upconvs_0|upconvs_1|upconv_0|upconv_1|"
     r"dispconvs|layer1|layer2|layer3|layer4|up_adapters|trans_adapters|"
     r"trans_drop_paths)_(\d+)")
+_POSE_CNN_CONV = re.compile(r"conv_(\d+)")
 _RENAMES = {
     "expand": "0",          # Transition part 0 (1x1 conv-bn-relu)
     "down": "1",            # Transition part 1 (dw 3x3 s2)
@@ -51,9 +59,12 @@ def torch_module_name(path: Tuple[str, ...]) -> str:
     parts = []
     for p in path:
         m = _LIST_ATTR.fullmatch(p)
+        conv = _POSE_CNN_CONV.fullmatch(p)
         if m:
             name = "adapters" if m.group(1) == "up_adapters" else m.group(1)
             parts.append(f"{name}.{m.group(2)}")
+        elif conv:
+            parts.append(f"net.{conv.group(1)}")
         else:
             parts.append(_RENAMES.get(p, p))
     return re.sub(r"^pose_encoder\.", "pose_encoder.encoder.", ".".join(parts))
@@ -102,14 +113,21 @@ def legacy_state_dict_from_jax(params: Dict, batch_stats: Dict,
     """`state_dict_from_jax` of a JAX `models/resnet_matching` tree under
     the legacy ManyDepth files' names, which `models.resnet_matching`
     uses: kind "encoder" (ResnetEncoderMatching: conv1 / bn1 ->
-    layer0.0 / layer0.1, layer1.i -> layer1.1.i behind the max-pool) or
+    layer0.0 / layer0.1, layer1.i -> layer1.1.i behind the max-pool),
     "decoder" (DepthDecoder: upconv_0.i / upconv_1.i -> decoder.2(4-i) /
-    decoder.2(4-i)+1, dispconvs.s -> decoder.10+s)."""
-    if kind not in ("encoder", "decoder"):
-        raise ValueError(f"kind must be 'encoder' or 'decoder', got {kind!r}")
+    decoder.2(4-i)+1, dispconvs.s -> decoder.10+s) or "resnet" (a
+    `models.resnet.ResnetEncoder` of 18 or 50 layers, the teacher's
+    mono_encoder.pth and pose_encoder.pth: torchvision's names under
+    `encoder.`, a Bottleneck's `layerN.M.conv3` / `bn3` and every
+    projection's `downsample.0` / `downsample.1` among them)."""
+    if kind not in ("encoder", "decoder", "resnet"):
+        raise ValueError(f"kind must be 'encoder', 'decoder' or 'resnet', "
+                         f"got {kind!r}")
     out = {}
     for name, v in state_dict_from_jax(params, batch_stats).items():
-        if kind == "encoder":
+        if kind == "resnet":
+            name = "encoder." + name
+        elif kind == "encoder":
             name = re.sub(r"^conv1\.", "layer0.0.", name)
             name = re.sub(r"^bn1\.", "layer0.1.", name)
             name = re.sub(r"^layer1\.(\d+)\.", r"layer1.1.\1.", name)

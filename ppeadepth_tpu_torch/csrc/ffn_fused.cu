@@ -10,7 +10,8 @@
 // `fold_ffn_params`). The two branches have one form, so `pack_ffn` folds
 // the adapter into the main products once, when a session is built:
 // W_up = [W1 | A1], b_up = [b1 | a1], W_down = [W2 ; A2], b_down = b2 + a2,
-// one FFN of hidden width Hp = 4C + C/4, zero-padded to a multiple of 64
+// one FFN of hidden width Hp = 4C + CA (the adapter's width: C/4, or C/2
+// under adpt_test 2), zero-padded to a multiple of 64
 // (gelu(0) = 0 and the padded rows of W_down are zero). Both weights are
 // stored K-major ([N, K], a row per output column). Two launches of the
 // GEMM below compute

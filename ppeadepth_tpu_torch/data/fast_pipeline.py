@@ -18,8 +18,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import dist
 from . import native_loader as NL
 from .augment import augment_batch, sample_jitter_factors
+from .loader import rank_share as _rank_share
 from .mono_dataset import MonoDataset
 
 
@@ -45,10 +47,14 @@ class FastDecodePipeline:
         drop_last: bool = True,
         seed: int = 0,
         cache_dir: str = "",
+        rank: int = 0,
+        world: int = 1,
     ):
         NL.library()  # build it now: a failed build raises here
         self.ds = dataset
         self.batch_size = batch_size
+        # data parallelism: this rank decodes its rows of each global batch
+        self.rank, self.world = rank, world
         self.frame_idxs = list(frame_idxs)
         self.shuffle = shuffle
         self.n_threads = n_threads
@@ -104,10 +110,9 @@ class FastDecodePipeline:
             rng.shuffle(order)
         if self.drop_last:
             order = order[: (n // self.batch_size) * self.batch_size]
-        return [
-            order[i: i + self.batch_size]
-            for i in range(0, len(order), self.batch_size)
-        ]
+        chunks = [order[i: i + self.batch_size]
+                  for i in range(0, len(order), self.batch_size)]
+        return [_rank_share(c, self.rank, self.world) for c in chunks]
 
     def _make(self, indices):
         H, W = self.ds.height, self.ds.width
@@ -165,7 +170,8 @@ def prepare_batch(frames_u8: Dict[int, np.ndarray], K_full: np.ndarray,
     None) from one `FastDecodePipeline` batch: the u8 frames uploaded (from
     pinned memory to a card), / 255, and `augment_batch` with factors drawn
     from `generator`. color_scales=1 leaves out the image pyramids the
-    training step never reads."""
+    training step never reads. Under data parallelism the factors are
+    drawn for the global batch and this rank takes its rows."""
     device = torch.device(device if device is not None else generator.device)
 
     def upload(a):
@@ -176,6 +182,7 @@ def prepare_batch(frames_u8: Dict[int, np.ndarray], K_full: np.ndarray,
 
     frames = {f: upload(v).float() / 255.0 for f, v in frames_u8.items()}
     B = next(iter(frames.values())).shape[0]
-    factors = sample_jitter_factors(generator, B, device)
+    factors = sample_jitter_factors(generator, B * dist.world(), device)
+    factors = {k: dist.rank_rows(v) for k, v in factors.items()}
     return augment_batch(frames, upload(K_full).float(), factors, height,
                          width, num_scales, color_scales)

@@ -7,6 +7,10 @@ overlaps the host-to-device copy with compute. Deterministic: per-item RNG
 is derived from (seed, epoch, index) inside the dataset, so
 shuffling/workers don't change augmentations (unlike the reference, which
 relies on worker-process seeding — trainer.py:78-81).
+
+Under data parallelism each rank builds the loader with its `rank` and
+the `world` size, and loads its share of every batch (`rank_share`) of
+the one order that the seed and epoch give every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +22,14 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+
+def rank_share(idxs, rank: int, world: int):
+    """Rank `rank`'s share of one batch's indices: the slice [rank * n,
+    (rank + 1) * n), n = ceil(len / world) (a short last batch may leave a
+    rank nothing)."""
+    n = -(-len(idxs) // world)
+    return idxs[rank * n:(rank + 1) * n]
 
 
 def _stack(items) -> Dict:
@@ -36,8 +48,11 @@ class DataLoader:
         num_workers: int = 8,
         drop_last: bool = True,
         seed: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
+        self.rank, self.world = rank, world
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -54,7 +69,9 @@ class DataLoader:
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
-    def __iter__(self) -> Iterator[Dict]:
+    def batch_indices(self):
+        """The dataset indices of this rank's batches in the epoch's order
+        (empty shares left out)."""
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
@@ -62,15 +79,17 @@ class DataLoader:
             rng.shuffle(order)
         if self.drop_last:
             order = order[: (n // self.batch_size) * self.batch_size]
+        shares = [rank_share(order[i : i + self.batch_size], self.rank,
+                             self.world)
+                  for i in range(0, len(order), self.batch_size)]
+        return [s for s in shares if len(s)]
 
+    def __iter__(self) -> Iterator[Dict]:
         def fetch(idx):
             return self.dataset.__getitem__(int(idx), epoch=self.epoch)
 
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            batch_idx = [
-                order[i : i + self.batch_size]
-                for i in range(0, len(order), self.batch_size)
-            ]
+            batch_idx = self.batch_indices()
             # pipeline: keep a couple of batches in flight
             pending = []
             it = iter(batch_idx)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.geometry import disp_to_depth
+from ..parallel import dist
 from . import metrics
 
 MIN_VAL = 1e-3
@@ -118,29 +119,55 @@ def predict_disps(model, opt, val_loader, min_bin=0.1, max_bin=10.0,
                 mono_disps.append(md.cpu().numpy())
     finally:
         model.train(was_training)
+    if not disps:  # a rank whose share of the set is empty
+        empty = np.zeros((0, opt.height, opt.width), np.float32)
+        pred = np.stack([empty, empty], 1) if opt.post_process else empty
+        return pred, empty if with_teacher else None
     return (np.concatenate(disps, 0),
             np.concatenate(mono_disps, 0) if mono_disps else None)
+
+
+def _mean_errors(disps, gt_depths, opt, min_val, max_val):
+    """The 7 errors averaged over the images, over every rank's images
+    under data parallelism (the sums and counts all-reduced, as the JAX
+    Trainer's sharded validation averages over the whole set)."""
+    n = disps.shape[0]
+    errors = (metrics.evaluate_disps(
+        disps, gt_depths, opt.eval_split, min_val, max_val,
+        opt.disable_median_scaling, opt.pred_depth_scale_factor)[0]
+        if n else np.zeros(7))
+    if not dist.enabled():
+        return errors
+    sums = torch.tensor(np.append(errors * n, n), dtype=torch.float64)
+    sums = dist.all_reduce_sum_(sums).numpy()
+    return sums[:7] / sums[7]
 
 
 def run_eval(model, opt, val_loader, min_bin=0.1, max_bin=10.0,
              with_teacher: bool = False, gt_depths=None,
              splits_dir: str = "./splits", min_val: float = MIN_VAL,
-             max_val: float = MAX_VAL, device=None):
+             max_val: float = MAX_VAL, device=None, indices=None):
     """Full evaluation: returns (mean_errors [7], teacher mean_errors [7]
-    or None). `min_bin`, `max_bin`: floats or 0-d tensors on the device."""
+    or None). `min_bin`, `max_bin`: floats or 0-d tensors on the device.
+    `indices`: the set's indices of the images `val_loader` yields (this
+    rank's share under data parallelism; None: the first N, all of them),
+    at which the GT depths are taken; under data parallelism the mean
+    errors are over every rank's images."""
     pred_disps, mono_disps = predict_disps(model, opt, val_loader, min_bin,
                                            max_bin, with_teacher, device)
     if opt.post_process:
         pred_disps = metrics.batch_post_process_disparity(
             pred_disps[:, 0], pred_disps[:, 1])
+    if indices is None:
+        indices = np.arange(pred_disps.shape[0])
+    indices = np.asarray(indices, dtype=np.int64)
     if gt_depths is None:
-        gt_depths = load_gt_depths(opt, pred_disps.shape[0], splits_dir)
-    mean_errors, _ = metrics.evaluate_disps(
-        pred_disps, gt_depths, opt.eval_split, min_val, max_val,
-        opt.disable_median_scaling, opt.pred_depth_scale_factor)
+        gt_depths = load_gt_depths(
+            opt, int(indices.max()) + 1 if len(indices) else 0, splits_dir)
+    gt_depths = [gt_depths[i] for i in indices]
+    mean_errors = _mean_errors(pred_disps, gt_depths, opt, min_val, max_val)
     mono_errors = None
     if mono_disps is not None:
-        mono_errors, _ = metrics.evaluate_disps(
-            mono_disps, gt_depths, opt.eval_split, min_val, max_val,
-            opt.disable_median_scaling, opt.pred_depth_scale_factor)
+        mono_errors = _mean_errors(mono_disps, gt_depths, opt, min_val,
+                                   max_val)
     return mean_errors, mono_errors

@@ -6,7 +6,8 @@ Counterparts in the JAX package (kernels/ffn_mxu.py):
   * `ffn_fused` (wrapper of csrc/ffn_fused.cu): `ffn_block_apply` (:201).
 
 `pack_ffn` folds the adapter into the main products (one FFN of hidden
-width 4C + C/4, zero-padded to the kernel's K tile) and stores the weights
+width 4C plus the adapter's width, C/4, or C/2 under adpt_test 2,
+zero-padded to the kernel's K tile) and stores the weights
 K-major, once per session (`models.replknet.ConvFFN.fold`). The kernel is
 two launches of one tensor-core GEMM, up (bias, erf-GELU, bf16 hidden in
 a workspace) and down (bias, residual); `ffn_plan` picks each launch's
@@ -103,8 +104,8 @@ def ffn_fused_plain(x2d, p: FoldedFFN):
 class PackedFFN(NamedTuple):
     """Kernel-B operands of `pack_ffn`: w_up [Hp, C] and w_down [C, Hp]
     K-major (a row per output column) in the compute dtype, b_up [Hp] and
-    b_down [C] f32. Hp is 4C (+ C/4 with the adapter) rounded up to
-    K_TILE; the padding is zero."""
+    b_down [C] f32. Hp is 4C (+ the adapter's width: C/4, C/2 under
+    adpt_test 2) rounded up to K_TILE; the padding is zero."""
 
     w_up: torch.Tensor
     b_up: torch.Tensor

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels.lk_conv import lk_depthwise, lk_depthwise_train
+from ..parallel import dist
 
 
 class DepthwiseConv(nn.Module):
@@ -118,12 +119,16 @@ class DropPath(nn.Module):
     def draw(self, x, generator=None):
         """Mask [B, 1, 1, 1] of x's dtype (1 / keep or 0), or None where
         the branch is kept whole (eval mode or rate 0). `generator` (None:
-        torch's default) lies on x's device."""
+        torch's default) lies on x's device. Under data parallelism the
+        mask is drawn for the global batch and this rank takes its rows
+        (`parallel.dist.rank_rows`)."""
         if not self.training or self.rate == 0.0:
             return None
         keep = 1.0 - self.rate
-        mask = torch.empty((x.shape[0], 1, 1, 1), device=x.device)
-        return (mask.bernoulli_(keep, generator=generator) / keep).to(x.dtype)
+        mask = torch.empty((x.shape[0] * dist.world(), 1, 1, 1),
+                           device=x.device)
+        mask = dist.rank_rows(mask.bernoulli_(keep, generator=generator))
+        return (mask / keep).to(x.dtype)
 
     def forward(self, x, mask=None):
         return x if mask is None else x * mask

@@ -97,7 +97,7 @@ class RepLKMatching(nn.Module):
                                   memory_format=torch.channels_last))
         features = [cur]
         for i in range(1, 4):
-            x = self.replk.forward_transition(i - 1, x)
+            x = self.replk.forward_transition(i - 1, x, generator)
             x = self.replk.forward_stage(i, x, generator)
             features.append(x)
         return features, lowest_cost, conf

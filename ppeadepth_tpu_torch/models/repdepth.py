@@ -38,6 +38,9 @@ _F32_MODULES = ("pose_encoder", "pose")
 _DECODERS = ("depth", "mono_depth")
 _DECODER_F32 = ("disp_convs", "adapter", "adapters", "deconv_adpt",
                 "deconv_adpt2")
+# encoder adapters that always compute in float32: the transition and
+# input adapters (their JAX modules carry no dtype)
+_F32_ADAPTERS = {"trans_adapters", "input_adapter"}
 # the DynamicDepth volume's options (`--dyn_cv`) and Config's defaults
 _CV_DEFAULTS = dict(cv_min=False, cv_set_1=False, cv_pool=False,
                     cv_pool_radius=1, cv_pool_th=0.7)
@@ -228,8 +231,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init: LeCun-normal conv/linear weights (flax's
     default), zero biases, identity BN, and zero adapter `D_fc2` weights
     (replknet_adapter.py:482-508), zero stage-2 `deconv_adpt` ConvTransposes
-    and zero layers marked `zero_init` (the dec_id-10 adapters' `D_fc1`).
-    Draws on the CPU from `generator`."""
+    and zero layers marked `zero_init` (the dec_id-10 adapters' `D_fc1`);
+    a layer's `zero_init` flag, where set, decides over its name (the
+    transition adapters' `D_fc2` is drawn, PARITY §2.4). Draws on the CPU
+    from `generator`."""
     for name, m in model.named_modules():
         if isinstance(m, nn.ConvTranspose2d):
             m.weight.zero_()
@@ -237,7 +242,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseConv)):
             w = m.weight
             fan_in = math.prod(w.shape[1:])
-            if name.endswith("D_fc2") or getattr(m, "zero_init", False):
+            if getattr(m, "zero_init", name.endswith("D_fc2")):
                 w.zero_()
             else:
                 w.copy_(torch.randn(w.shape, generator=generator)
@@ -252,12 +257,14 @@ def cast_compute(model: nn.Module, dtype: torch.dtype) -> None:
     """Cast conv and linear weights to the compute dtype, as the JAX modules
     cast params at use. BatchNorm keeps f32 statistics (its output follows
     the input dtype), the disparity heads and the stage-2 decoder adapters
-    stay f32 (depth_decoder.py:76; the JAX adapters carry no dtype) and so
-    do the pose nets (`_F32_MODULES`). Folded ConvFFN operands are left as
+    stay f32 (depth_decoder.py:76; the JAX adapters carry no dtype), and so
+    do the encoders' transition and input adapters (`_F32_ADAPTERS`) and
+    the pose nets (`_F32_MODULES`). Folded ConvFFN operands are left as
     folded."""
     for name, m in model.named_modules():
         parts = name.split(".")
         if (isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseConv))
                 and parts[0] not in _F32_MODULES
-                and not (parts[0] in _DECODERS and parts[1] in _DECODER_F32)):
+                and not (parts[0] in _DECODERS and parts[1] in _DECODER_F32)
+                and not _F32_ADAPTERS & set(parts)):
             m.to(dtype)

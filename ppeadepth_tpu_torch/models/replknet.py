@@ -3,8 +3,15 @@
 replknet_adapter.py:381-644).
 
   stem: conv3x3 s2 -> dw3x3 -> conv1x1 -> dw3x3 s2            (1/4 res)
+        [+ input adapter on the first conv's output]
   4 stages of num_blocks x (RepLKBlock, ConvFFN) pairs
   transitions: conv1x1 + dw3x3 s2 between stages
+        [+ drop-path(transition adapter) on each transition's output]
+
+The transition and input adapters (`trans_adpt`, `input_adpt`) run in
+float32 with autocast off, as their JAX modules carry no dtype; their sum
+with the compute-dtype stream is taken in f32 and rounded back to the
+stream's dtype, which kernels A and B take (JAX keeps that sum in f32).
 
 Training form: per-block drop-path on the linear schedule
 `np.linspace(0, rate, sum(layers))` (block pair i of the network takes
@@ -27,7 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ffn_fused import PackedFFN, ffn_fused, fold_ffn_params, pack_ffn
-from .adapters import BAdapter, ChannelAdapter
+from .adapters import BAdapter, ChannelAdapter, InputAdapter
 from .blocks import ConvBN, DepthwiseConv, DropPath
 
 REPLK_CONFIGS = {
@@ -262,10 +269,6 @@ class RepLKNet(nn.Module):
         super().__init__()
         if lk_backend not in ("lax", "pallas"):
             raise ValueError(f"unknown lk_backend {lk_backend!r}")
-        if trans_adpt or input_adpt:
-            raise NotImplementedError(
-                "transition/input adapters (--mono_trans/--mono_input) are "
-                "not ported yet")
         cfg = REPLK_CONFIGS[rep_size]
         channels = cfg["channels"]
         layers = cfg["layers"]
@@ -293,6 +296,16 @@ class RepLKNet(nn.Module):
         self.transitions = nn.ModuleList([
             _transition(channels[i], channels[i + 1]) for i in range(3)
         ])
+        # the transition after stage i takes the drop-path rate of the
+        # stage's first block pair (JAX replknet.py:400-407)
+        self.trans_adapters = self.trans_drop_paths = None
+        if trans_adpt:
+            self.trans_adapters = nn.ModuleList([
+                ChannelAdapter(channels[i + 1], zero_init=False)
+                for i in range(3)])
+            self.trans_drop_paths = nn.ModuleList([
+                DropPath(dpr[sum(layers[:i])]) for i in range(3)])
+        self.input_adapter = InputAdapter(base) if input_adpt else None
 
     def fold_ffn(self, dtype: torch.dtype) -> None:
         """Fold every ConvFFN into kernel-B operands of `dtype`."""
@@ -309,15 +322,27 @@ class RepLKNet(nn.Module):
         dtype and channels_last memory (the layout kernels A and B take)."""
         x = x.to(dtype=self.stem[0].conv.weight.dtype,
                  memory_format=torch.channels_last)
-        for layer in self.stem:
+        x = self.stem[0](x)
+        adpt = None
+        if self.input_adapter is not None:
+            adpt = _in_f32(self.input_adapter, x)
+        for layer in self.stem[1:]:
             x = layer(x)
-        return x
+        return x if adpt is None else (x.float() + adpt).to(x.dtype)
 
     def forward_stage(self, idx: int, x, generator=None):
         return self.stages[idx](x, generator)
 
-    def forward_transition(self, idx: int, x):
-        return self.transitions[idx](x)
+    def forward_transition(self, idx: int, x, generator=None):
+        """Transition `idx` (and its adapter); `generator` draws the
+        adapter's drop-path mask in training."""
+        x = self.transitions[idx](x)
+        if self.trans_adapters is None:
+            return x
+        drop = self.trans_drop_paths[idx]
+        mask = drop.draw(x, generator)
+        adpt = drop(_in_f32(self.trans_adapters[idx], x), mask)
+        return (x.float() + adpt).to(x.dtype)
 
     def forward(self, x, generator=None):
         """[B, 3, H, W] -> the 4-level pyramid [1/4, 1/8, 1/16, 1/32].
@@ -328,5 +353,11 @@ class RepLKNet(nn.Module):
             x = self.forward_stage(i, x, generator)
             feats.append(x)
             if i < 3:
-                x = self.forward_transition(i, x)
+                x = self.forward_transition(i, x, generator)
         return feats
+
+
+def _in_f32(module: nn.Module, x):
+    """`module` on x in float32 with autocast off."""
+    with torch.autocast(x.device.type, enabled=False):
+        return module(x.float())

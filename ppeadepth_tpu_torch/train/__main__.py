@@ -6,7 +6,13 @@ the reference's flag names (README.md:40-56):
   eval:     --eval --load_weights_folder P [--lk_backend pallas]
 
 It runs on one CUDA card and raises without one. Splits are read from
-./splits, as in the JAX package.
+./splits, as in the JAX package. Data parallelism over N cards, one
+process each (`parallel.dist`; `--batch_size` is the global batch):
+
+  PPEA_DISTRIBUTED=1 torchrun --nproc_per_node N -m ppeadepth_tpu_torch.train ...
+
+The process group (NCCL) is set up before the Trainer and taken down
+after it. `--eval` runs in one process.
 """
 
 from __future__ import annotations
@@ -38,13 +44,19 @@ def main(argv=None):
 
         return evaluate(opt)
 
+    from ..parallel import dist
     from .trainer import Trainer
 
-    trainer = Trainer(opt)
+    grouped = dist.init_from_env("cuda")
     try:
-        trainer.train()
+        trainer = Trainer(opt)
+        try:
+            trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if grouped:
+            dist.shutdown()
     return trainer
 
 

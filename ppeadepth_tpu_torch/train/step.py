@@ -31,6 +31,15 @@ statistics updated once per microbatch in order, the metrics and the
 teacher depth's min/max averaged over the microbatches; Adam, the
 schedule and the bin EMA step once.
 
+Under data parallelism (`parallel.dist`, one process a device) the step
+is the JAX step over the global batch: each rank holds its rows of the
+batch, the draws are made for the global batch and sliced
+(`dist.rank_rows`), BN takes global statistics (`dist.GlobalBatchNorm`,
+swapped in by the caller), the reprojection losses divide by the
+global mask count, the gradients are averaged over the ranks before
+Adam, and the metrics and the depth extremes of the bin update are the
+global batch's. The batch handed to the step is this rank's share.
+
 Options the JAX package needs to fit 16 GB of HBM (`remat_loss`,
 `remat_policy`, `remat_pose`, `frozen_bf16`) are accepted and do nothing
 here.
@@ -48,6 +57,7 @@ from ..core import losses as L
 from ..core.geometry import disp_to_depth, reproject_coords
 from ..kernels.warp import warp_border
 from ..ops.resize import resize_bilinear
+from ..parallel import dist
 from .freeze import apply_labels, param_labels
 
 _COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -92,6 +102,14 @@ def draw(generator: torch.Generator, batch: int, height: int, width: int
     return StepDraws(aug_u=torch.rand((batch,), generator=generator, device=dev),
                      noise_mono=normal(), noise_multi=normal(),
                      drop_path=generator)
+
+
+def rank_draws(d: StepDraws) -> StepDraws:
+    """This rank's rows of draws made for the global (micro)batch."""
+    return StepDraws(aug_u=dist.rank_rows(d.aug_u),
+                     noise_mono=dist.rank_rows(d.noise_mono),
+                     noise_multi=dist.rank_rows(d.noise_multi),
+                     drop_path=d.drop_path)
 
 
 def create_train_state(model, opt, *, device="cuda",
@@ -194,7 +212,10 @@ def _branch_losses(inputs, outputs, opt, noise, is_multi: bool):
         consistency_loss = torch.mean(torch.abs(depth - mono_depth) * (1.0 - mask))
         aux["consistency_loss"] = consistency_loss
 
-    reproj_loss = torch.sum(reproj_min * mask) / (torch.sum(mask) + 1e-7)
+    # the global batch's mask count; each rank's share of the sum, scaled
+    # by the world size, so the mean over ranks is the global ratio
+    count = dist.all_reduce_sum_(torch.sum(mask).detach())
+    reproj_loss = dist.world() * torch.sum(reproj_min * mask) / (count + 1e-7)
     smooth = L.normalized_smooth_loss(disp.permute(0, 2, 3, 1), target)
     loss = reproj_loss + consistency_loss + opt.disparity_smoothness * smooth
     aux["reproj_loss"] = reproj_loss
@@ -256,9 +277,10 @@ def make_train_step(model, opt, optimizer, scheduler=None):
     """train_step(state, batch, draws=None) -> (state, metrics).
 
     batch: the JAX batch dict (`("color", f, 0)`, `("color_aug", f, 0)`
-    NHWC, `("K", s)`, `("inv_K", s)`) of the whole step; draws: one
-    `StepDraws` per microbatch (`opt.grad_accum` of them, a bare StepDraws
-    when there is one), or None to draw them in order from
+    NHWC, `("K", s)`, `("inv_K", s)`) of the whole step (this rank's share
+    under data parallelism); draws: one `StepDraws` per microbatch
+    (`opt.grad_accum` of them, a bare StepDraws when there is one), each
+    made for the global microbatch, or None to draw them in order from
     `state.generator`. One update of `optimizer` (and `scheduler`, e.g.
     `schedule.make_optimizer`'s LambdaLR); gradients stay in the
     parameters' `.grad` until the next step. metrics: 0-d tensors under
@@ -273,13 +295,14 @@ def make_train_step(model, opt, optimizer, scheduler=None):
                    draws: Union[StepDraws, Sequence[StepDraws], None] = None):
         micro = split_microbatches(batch_to_device(batch, state.device), n)
         if draws is None:
-            B = micro[0][("color", 0, 0)].shape[0]
+            B = micro[0][("color", 0, 0)].shape[0] * dist.world()
             draws = [draw(state.generator, B, opt.height, opt.width)
                      for _ in micro]
         elif isinstance(draws, StepDraws):
             draws = [draws]
         if len(draws) != n:
             raise ValueError(f"{len(draws)} StepDraws for {n} microbatches")
+        draws = [rank_draws(d) for d in draws]
         model.train()
         optimizer.zero_grad(set_to_none=True)
         per = []
@@ -292,6 +315,7 @@ def make_train_step(model, opt, optimizer, scheduler=None):
                         "dmax": d.amax(dim=(1, 2, 3)).mean(),
                         **{k: v.detach() for k, v in metrics.items()}})
         metrics = per[0]
+        dist.average_gradients(model.parameters())
         if n > 1:
             with torch.no_grad():
                 for p in model.parameters():
@@ -299,6 +323,10 @@ def make_train_step(model, opt, optimizer, scheduler=None):
                         p.grad.div_(n)
             metrics = {k: torch.stack([m[k] for m in per]).mean()
                        for k in metrics}
+        if dist.enabled():
+            names = list(metrics)
+            mean = dist.all_reduce_mean(torch.stack([metrics[k] for k in names]))
+            metrics = dict(zip(names, mean.unbind()))
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -14,9 +14,16 @@ and the schedule count full batches, as in JAX. `--fast_pipeline
 decode on the host, then the upload and the augmentation on the device,
 with draws from a device generator of their own.
 
-Differences from the JAX Trainer: one device and no mesh; the JAX
-package's automatic `--remat_loss` guard for a 16 GB TPU has no
-counterpart; a plain resume (no `--ktf`) takes the step count from the
+Data parallelism (`parallel.dist`, a process group set up before the
+Trainer, one process a card): `--batch_size` is the global batch, as in
+JAX; each rank loads its share of the same shuffled global batches, every
+BatchNorm becomes a `GlobalBatchNorm`, the weights are broadcast from rank
+0, validation is split over the ranks with its error sums all-reduced,
+and only rank 0 prints, logs and writes checkpoints.
+
+Differences from the JAX Trainer: one process a device instead of one
+mesh; the JAX package's automatic `--remat_loss` guard for a 16 GB TPU
+has no counterpart; a plain resume (no `--ktf`) takes the step count from the
 checkpoint's track.json, where the JAX Trainer keeps its fresh step.
 Logging is stdout and `metrics.jsonl` under the JAX keys.
 """
@@ -34,6 +41,7 @@ from ..ckpt import io as ckpt_io
 from ..eval import evaluator, metrics as M
 from ..models import RepDepth, init_weights
 from ..models.repdepth import cudnn_without_tf32
+from ..parallel import dist
 from . import freeze, schedule
 from .step import create_train_state, make_train_step
 
@@ -48,12 +56,21 @@ def readlines(path):
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device must exist (the CLI runs
-    on the card and does not fall back to the CPU)."""
+    on the card and does not fall back to the CPU). A bare "cuda" is the
+    current card (a data-parallel rank's own)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("a CUDA device was asked for and none is "
                            "available; pass device='cpu' to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _print(*args):
+    """print on rank 0 only."""
+    if dist.is_main():
+        print(*args)
 
 
 class Trainer:
@@ -62,7 +79,8 @@ class Trainer:
     (`evaluator.load_gt_depths`); device: "cuda" unless the caller asks for
     the CPU. The validation set is the training dataset's test split, or,
     for any dataset other than KITTI, the `cityscapes_eval` layout under
-    `opt.cs_eval_path` (trainer.py:110-116)."""
+    `opt.cs_eval_path` (trainer.py:110-116). Under a process group
+    (`parallel.dist`) the Trainer is one rank of a data-parallel run."""
 
     def __init__(self, opt, splits_dir: str = "./splits", device="cuda"):
         self.opt = opt = opt.with_mode_presets()
@@ -70,6 +88,12 @@ class Trainer:
         self.splits_dir = splits_dir
         self.log_path = os.path.join(opt.log_dir, opt.name)
         os.makedirs(self.log_path, exist_ok=True)
+        W = dist.world()
+        if opt.batch_size % (W * opt.grad_accum):
+            raise ValueError(
+                f"--batch_size {opt.batch_size} (the global batch) must be a "
+                f"multiple of {W} ranks x --grad_accum {opt.grad_accum}")
+        shard = dict(rank=dist.rank(), world=W)
 
         # datasets
         frames_to_load = list(opt.frame_ids)
@@ -97,14 +121,14 @@ class Trainer:
                 self.train_loader = FastDecodePipeline(
                     train_ds, opt.batch_size, sorted(set(frames_to_load)),
                     shuffle=True, n_threads=opt.num_workers,
-                    cache_dir=opt.decode_cache)
+                    cache_dir=opt.decode_cache, **shard)
             else:
                 self.train_loader = D.DataLoader(
                     train_ds, opt.batch_size, shuffle=True,
-                    num_workers=opt.num_workers)
+                    num_workers=opt.num_workers, **shard)
             self.val_loader = D.DataLoader(
                 val_ds, opt.batch_size, shuffle=False,
-                num_workers=opt.num_workers, drop_last=False)
+                num_workers=opt.num_workers, drop_last=False, **shard)
             self.steps_per_epoch = len(self.train_loader)
         else:
             self.steps_per_epoch = 1000  # synthetic / smoke mode
@@ -123,8 +147,12 @@ class Trainer:
             generator=torch.Generator(device).manual_seed(seed))
         # the fast pipeline's augmentation draws
         self.aug_generator = torch.Generator(device).manual_seed(seed + 1)
+        if dist.enabled():
+            dist.convert_global_bn(self.model)
+            dist.replicate(self.model)
         labels = freeze.param_labels(self.model, opt)
-        freeze.print_num_param(self.model, labels)
+        if dist.is_main():
+            freeze.print_num_param(self.model, labels)
         lr = 1e-6 if opt.freeze_pose else opt.learning_rate
         self.optimizer, self.scheduler = schedule.make_optimizer(
             [p for p in self.model.parameters() if p.requires_grad], lr,
@@ -133,11 +161,14 @@ class Trainer:
             self.load_model(opt.load_weights_folder)
         self.step_fn = make_train_step(self.model, opt, self.optimizer,
                                        self.scheduler)
-        self._metrics_file = open(
-            os.path.join(self.log_path, "metrics.jsonl"), "a")
+        self._metrics_file = None
+        if dist.is_main():
+            self._metrics_file = open(
+                os.path.join(self.log_path, "metrics.jsonl"), "a")
 
     def close(self) -> None:
-        self._metrics_file.close()
+        if self._metrics_file is not None:
+            self._metrics_file.close()
         if hasattr(self.train_loader, "close"):
             self.train_loader.close()
 
@@ -159,11 +190,15 @@ class Trainer:
             track.get("max_depth_bin", 10.0), dtype=torch.float32, device=dev)
         if not self.opt.ktf:
             self.state.step = int(track.get("step", 0))
-        print(f"loaded checkpoint from {folder} "
-              f"(bins {self.state.min_depth_bin.item():.3f}"
-              f"/{self.state.max_depth_bin.item():.3f})")
+        _print(f"loaded checkpoint from {folder} "
+               f"(bins {self.state.min_depth_bin.item():.3f}"
+               f"/{self.state.max_depth_bin.item():.3f})")
 
     def save_model(self, suffix: str):
+        """Write the checkpoint folder (rank 0 only); returns its path, or
+        None on another rank."""
+        if not dist.is_main():
+            return None
         folder = os.path.join(self.log_path, f"{self.opt.name}_{suffix}")
         ckpt_io.save_checkpoint(folder, self.model, self.optimizer,
                                 self.scheduler, self.state, self.opt)
@@ -171,6 +206,8 @@ class Trainer:
         return folder
 
     def log_metrics(self, step: int, metrics: dict, prefix: str = "train"):
+        if self._metrics_file is None:
+            return
         rec = {"step": step, "prefix": prefix}
         rec.update({k: float(v) for k, v in metrics.items()})
         self._metrics_file.write(json.dumps(rec) + "\n")
@@ -198,8 +235,8 @@ class Trainer:
                     dt = time.perf_counter() - t_last
                     ips = LOG_EVERY * opt.batch_size / dt
                     t_last = time.perf_counter()
-                    print(f"epoch {epoch} step {step} "
-                          f"loss {metrics['loss']:.4f} {ips:.1f} img/s")
+                    _print(f"epoch {epoch} step {step} "
+                           f"loss {metrics['loss']:.4f} {ips:.1f} img/s")
                     self.log_metrics(step, metrics)
                 if opt.validate_every > 0 and step % opt.validate_every == 0:
                     self.validate(step)
@@ -224,17 +261,20 @@ class Trainer:
     def validate(self, step: int):
         if self.val_loader is None:
             return None
+        # this rank's share of the set (all of it without a process group)
+        indices = [int(i) for b in self.val_loader.batch_indices() for i in b]
         with cudnn_without_tf32():  # as evaluate_depth.evaluate
             errors, mono_errors = evaluator.run_eval(
                 self.model, self.opt, iter(self.val_loader),
                 min_bin=self.state.min_depth_bin,
                 max_bin=self.state.max_depth_bin,
                 with_teacher=not self.opt.freeze_teacher_and_pose,
-                splits_dir=self.splits_dir, device=self.device)
-        print(f"[val @ {step}]\n" + M.format_metrics(errors))
+                splits_dir=self.splits_dir, device=self.device,
+                indices=indices)
+        _print(f"[val @ {step}]\n" + M.format_metrics(errors))
         self.log_metrics(step, dict(zip(M.METRIC_NAMES, errors)), prefix="val")
         if mono_errors is not None:
-            print("[val mono]\n" + M.format_metrics(mono_errors))
+            _print("[val mono]\n" + M.format_metrics(mono_errors))
             self.log_metrics(step, dict(zip(M.METRIC_NAMES, mono_errors)),
                              prefix="val_mono")
         return errors

@@ -4,7 +4,8 @@ the path tests/test_cost_volume_mxu.py:51-57 holds the Pallas kernel to)
 and against the Pallas kernel itself in interpret mode, the whole
 `plane_sweep_cost_volume` (averaged and cv_min, a skipped frame), the
 confidence mask and lowest-cost disparity, and the wrapper's routing and
-input checks. Kernel C itself is held to the plain version on the card
+input checks (the last two in tests/test_torch_cost_volume_checks.py). Kernel
+C itself is held to the plain version on the card
 (tests/test_torch_gpu_kernels.py).
 
 Sampled coordinates within rounding of the 2-px edge-mask boundary flip
@@ -22,10 +23,10 @@ import torch
 
 from ppeadepth_tpu.kernels.cost_volume_mxu import frame_diffs_batch
 from ppeadepth_tpu.ops import cost_volume as JCV
-from ppeadepth_tpu_torch import kernels
 from ppeadepth_tpu_torch.kernels.cost_volume import plane_sweep, plane_sweep_plain
 from ppeadepth_tpu_torch.ops import cost_volume as CV
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 
 B, H, W, C, D = 2, 16, 32, 16, 32
 NEAR = 1e-4  # px: a sample this close to an edge-mask boundary may flip
@@ -222,41 +223,3 @@ def test_zero_pose_gives_all_missing():
     assert (miss == 1).all() and (cost == 0).all()
     assert (CV.confidence_mask(cost, miss) == 0).all()
     assert (CV.lowest_cost_disparity(cost, bins) == 1 / bins[0]).all()
-
-
-def test_plane_sweep_routes_cpu_to_plain():
-    """CPU tensors take the plain version and launch nothing; the output
-    is [B, D, H, W] f32."""
-    rng = np.random.RandomState(8)
-    cur, lk = _features(9)
-    A, t = _proj(np.stack([_pose(rng) for _ in range(B)]), *_K())
-    args = (_to_torch(cur), _to_torch(lk), torch.from_numpy(A),
-            torch.from_numpy(t), torch.from_numpy(_bins()))
-    before = dict(kernels.launch_counts)
-    got = plane_sweep(*args)
-    assert kernels.launch_counts == before
-    torch.testing.assert_close(got, plane_sweep_plain(*args), rtol=0, atol=0)
-    assert got.shape == (B, D, H, W) and got.dtype == torch.float32
-
-
-def _args(**kw):
-    cur = torch.zeros(2, 16, 6, 8).contiguous(memory_format=torch.channels_last)
-    a = dict(cur=cur, lk=cur.clone(), A=torch.zeros(2, 3, 3), t=torch.zeros(2, 3),
-             bins=torch.ones(4))
-    a.update(kw)
-    return a
-
-
-@pytest.mark.parametrize("kw,exc", [
-    (dict(lk=torch.zeros(2, 16, 6, 9)), ValueError),
-    (dict(A=torch.zeros(2, 4, 4)), ValueError),
-    (dict(t=torch.zeros(3, 3)), ValueError),
-    (dict(bins=torch.ones(2, 2)), ValueError),
-    (dict(cur=_args()["cur"].double(), lk=_args()["cur"].double()), TypeError),
-    (dict(lk=_args()["cur"].bfloat16()), TypeError),
-    (dict(A=torch.zeros(2, 3, 3, dtype=torch.float64)), TypeError),
-    (dict(cur=torch.zeros(2, 16, 6, 8), lk=torch.zeros(2, 16, 6, 8)), ValueError),
-])
-def test_plane_sweep_rejects_bad_inputs(kw, exc):
-    with pytest.raises(exc):
-        plane_sweep(**_args(**kw))

@@ -1,17 +1,13 @@
-"""The port's training kernels' plain versions, geometry and losses against
-JAX on the CPU, in f32:
-
-  * kernel D's plain version (`kernels.warp.warp_border` on CPU tensors)
-    against ops/sampling.grid_sample(..., "border") and its autodiff
-    coordinate gradient, and against the Pallas kernel
-    `warp_mxu.grid_sample_border_mxu` in interpret mode in its exact f32
-    mode and its custom VJP, at fractional, integer and out-of-range
-    coordinates;
-  * kernel #2 (`kernels.lk_conv.lk_depthwise_train`: forward, d/dx on the
-    flipped kernel, d/dw when the weight requires grad) against
-    `banded_conv.banded_depthwise_train` in interpret mode;
-  * `core.geometry` reprojection and `core.losses` against their JAX
-    counterparts, values and gradients.
+"""Kernel D's plain version (`kernels.warp.warp_border` on CPU tensors)
+against JAX on the CPU, in f32: against ops/sampling.grid_sample(...,
+"border") and its autodiff coordinate gradient, and against the Pallas
+kernel `warp_mxu.grid_sample_border_mxu` in interpret mode in its exact f32
+mode and its custom VJP, at fractional, integer and out-of-range
+coordinates; its input checks; and the zeros-padding `grid_sample`.
+Kernel #2 and the geometry are in tests/test_torch_train_geometry.py, the
+losses in tests/test_torch_train_losses.py (files of at most 10 tests keep
+every port test file behind tests/test_train_step.py in pytest-xdist's
+file queue).
 
 The CUDA kernels themselves are held against these plain versions on the
 card (tests/test_torch_gpu_kernels.py, chip_smoke.py).
@@ -25,21 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from ppeadepth_tpu.core import geometry as jgeo
-from ppeadepth_tpu.core import losses as JL
-from ppeadepth_tpu.kernels import banded_conv, warp_mxu
-from ppeadepth_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
+from ppeadepth_tpu.kernels import warp_mxu
 from ppeadepth_tpu.ops.sampling import grid_sample as jax_grid_sample
 from ppeadepth_tpu_torch import kernels
-from ppeadepth_tpu_torch.core import geometry as G
-from ppeadepth_tpu_torch.core import losses as L
-from ppeadepth_tpu_torch.kernels.lk_conv import lk_depthwise_train
 from ppeadepth_tpu_torch.kernels.warp import warp_border
-from ppeadepth_tpu_torch.ops.resize import resize_bilinear
 from ppeadepth_tpu_torch.ops.sampling import grid_sample
-from tests.test_torch_student import T_GIVEN, intrinsics
-from tests.torch_parity import nhwc_to_torch, torch_to_nhwc
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
 
 # W - 1 and H - 1 powers of two: an integer pixel position survives the
 # normalise -> unnormalise round trip exactly
@@ -158,157 +146,3 @@ def test_grid_sample_zeros_matches_jax():
     ref = np.asarray(jax_grid_sample(jnp.asarray(img), jnp.asarray(coords), "zeros"))
     got = grid_sample(torch.from_numpy(img), torch.from_numpy(coords), "zeros")
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_banded_train(k):
-    """Jitted (forward, d/dx, d/dw) of banded_depthwise_train in interpret
-    mode with f32 tables."""
-    def run(x, w, g):
-        y, vjp = jax.vjp(lambda xx, ww: banded_conv.banded_depthwise_train(
-            xx, ww, k, True, jnp.float32), x, w)
-        return (y,) + vjp(g)
-    return jax.jit(run)
-
-
-@pytest.mark.parametrize("want_dw", [False, True], ids=["frozen_w", "trained_w"])
-@pytest.mark.parametrize("k", [5, 7])
-def test_lk_train_matches_banded_pallas(k, want_dw):
-    """Forward, d/dx and d/dw: atol 1e-5 as tests/test_banded_conv.py's f32
-    table checks of the forward (summation order only); d/dw sums over
-    B*H*W products, atol 1e-4."""
-    rng = np.random.RandomState(k)
-    Bx, Hx, Wx, Cx = 4, 6, 16, 8
-    x = (rng.rand(Bx, Hx, Wx, Cx) - 0.5).astype(np.float32)
-    w = (rng.randn(k, k, 1, Cx) * 0.1).astype(np.float32)
-    g = rng.randn(Bx, Hx, Wx, Cx).astype(np.float32)
-    y_ref, dx_ref, dw_ref = (np.asarray(a) for a in _jax_banded_train(k)(
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(g)))
-
-    xt = nhwc_to_torch(x).requires_grad_(True)
-    wt = torch.from_numpy(w.transpose(3, 2, 0, 1).copy()).requires_grad_(want_dw)
-    n0 = dict(kernels.launch_counts)
-    y = lk_depthwise_train(xt, wt)
-    y.backward(nhwc_to_torch(g))
-    assert kernels.launch_counts == n0
-    np.testing.assert_allclose(torch_to_nhwc(y), y_ref, rtol=0, atol=1e-5)
-    np.testing.assert_allclose(torch_to_nhwc(xt.grad), dx_ref, rtol=0, atol=1e-5)
-    if want_dw:
-        np.testing.assert_allclose(wt.grad.numpy().transpose(2, 3, 1, 0),
-                                   dw_ref, rtol=0, atol=1e-4)
-    else:
-        assert wt.grad is None
-
-
-def _depth(rng, h, w):
-    return (rng.rand(B, h, w, 1) * 20 + 1).astype(np.float32)
-
-
-def test_backproject_and_project_match_jax():
-    """atol 1e-5 on coordinates in [-1, 1]-ish and points of depth <= 21
-    (f32 products of 3x3 and 4x4 matrices)."""
-    rng = np.random.RandomState(5)
-    K, invK = intrinsics(H, W)
-    depth = _depth(rng, H, W)
-    pts_ref = np.asarray(jgeo.backproject_depth(jnp.asarray(depth), jnp.asarray(invK)))
-    pts = G.backproject_depth(torch.from_numpy(depth), torch.from_numpy(invK))
-    np.testing.assert_allclose(pts.numpy(), pts_ref, rtol=1e-6, atol=1e-5)
-    ref = np.asarray(jgeo.project_3d(jnp.asarray(pts_ref), jnp.asarray(K),
-                                     jnp.asarray(T_GIVEN), H, W))
-    got = G.project_3d(torch.from_numpy(pts_ref), torch.from_numpy(K),
-                       torch.from_numpy(T_GIVEN), H, W)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
-
-
-def test_reproject_coords_matches_jax_with_gradients():
-    """Coordinates and the gradients of a weighted sum with respect to
-    depth and pose: rtol 1e-4 (the chain's f32 rounding, relative to
-    gradients that scale with the intrinsics)."""
-    rng = np.random.RandomState(6)
-    K, invK = intrinsics(H, W)
-    depth = _depth(rng, H, W)
-    wgt = rng.randn(B, H, W, 2).astype(np.float32)
-
-    def f(d, T):
-        c = jgeo.reproject_coords(d, jnp.asarray(invK), jnp.asarray(K), T)
-        return jnp.sum(c * wgt), c
-
-    (_, ref), (gd_ref, gT_ref) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(depth), jnp.asarray(T_GIVEN))
-    d = torch.from_numpy(depth).requires_grad_()
-    T = torch.from_numpy(T_GIVEN).requires_grad_()
-    c = G.reproject_coords(d, torch.from_numpy(invK), torch.from_numpy(K), T)
-    (c * torch.from_numpy(wgt)).sum().backward()
-    np.testing.assert_allclose(c.detach().numpy(), np.asarray(ref), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(d.grad.numpy(), np.asarray(gd_ref), rtol=1e-4, atol=1e-7)
-    np.testing.assert_allclose(T.grad.numpy(), np.asarray(gT_ref), rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("no_ssim", [False, True])
-def test_reprojection_loss_matches_jax_with_gradient(no_ssim):
-    """Per-pixel loss and its gradient with respect to the prediction
-    (atol 1e-6 / 1e-6: f32 pooling sums in another order)."""
-    rng = np.random.RandomState(7)
-    pred = rng.rand(B, H, W, C).astype(np.float32)
-    target = rng.rand(B, H, W, C).astype(np.float32)
-    wgt = rng.rand(B, H, W, 1).astype(np.float32)
-
-    def f(p):
-        r = JL.reprojection_loss(p, jnp.asarray(target), no_ssim)
-        return jnp.sum(r * wgt), r
-
-    (_, ref), gref = jax.value_and_grad(f, has_aux=True)(jnp.asarray(pred))
-    p = torch.from_numpy(pred).requires_grad_()
-    r = L.reprojection_loss(p, torch.from_numpy(target), no_ssim)
-    (r * torch.from_numpy(wgt)).sum().backward()
-    assert r.shape == (B, H, W, 1)
-    np.testing.assert_allclose(r.detach().numpy(), np.asarray(ref), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(p.grad.numpy(), np.asarray(gref), rtol=0, atol=1e-6)
-
-
-def test_ssim_automask_and_matching_mask_match_jax():
-    rng = np.random.RandomState(8)
-    x = rng.rand(B, H, W, C).astype(np.float32)
-    y = rng.rand(B, H, W, C).astype(np.float32)
-    np.testing.assert_allclose(
-        L.ssim(torch.from_numpy(x), torch.from_numpy(y)).numpy(),
-        np.asarray(JL.ssim(jnp.asarray(x), jnp.asarray(y))), rtol=0, atol=1e-6)
-    a, b = rng.rand(2, B, H, W, 1).astype(np.float32)
-    b[0, 0, :3] = a[0, 0, :3]  # ties: strict '<' keeps them out
-    np.testing.assert_array_equal(
-        L.automask(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
-        np.asarray(JL.automask(jnp.asarray(a), jnp.asarray(b))))
-    mono = (rng.rand(B, H, W, 1) * 10 + 0.5).astype(np.float32)
-    low = (1.0 / (mono[..., 0] * rng.uniform(0.3, 3.0, (B, H, W)))).astype(np.float32)
-    got = L.matching_mask(torch.from_numpy(mono), torch.from_numpy(low)).numpy()
-    np.testing.assert_array_equal(
-        got, np.asarray(JL.matching_mask(jnp.asarray(mono), jnp.asarray(low))))
-    assert 0.1 < got.mean() < 0.9
-
-
-def test_smooth_losses_match_jax_with_gradient():
-    """smooth_loss and normalized_smooth_loss and the gradient of the
-    latter with respect to the disparity (rtol 1e-5: f32 means)."""
-    rng = np.random.RandomState(9)
-    disp = rng.rand(B, H, W, 1).astype(np.float32) + 0.1
-    img = rng.rand(B, H, W, C).astype(np.float32)
-    np.testing.assert_allclose(
-        float(L.smooth_loss(torch.from_numpy(disp), torch.from_numpy(img))),
-        float(JL.smooth_loss(jnp.asarray(disp), jnp.asarray(img))), rtol=1e-5)
-    ref, gref = jax.value_and_grad(
-        lambda d: JL.normalized_smooth_loss(d, jnp.asarray(img)))(jnp.asarray(disp))
-    d = torch.from_numpy(disp).requires_grad_()
-    got = L.normalized_smooth_loss(d, torch.from_numpy(img))
-    got.backward()
-    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
-    np.testing.assert_allclose(d.grad.numpy(), np.asarray(gref), rtol=1e-4, atol=1e-7)
-
-
-@pytest.mark.parametrize("hw", [(18, 34), (36, 68), (9, 17)])
-def test_resize_bilinear_matches_jax(hw):
-    """Half-pixel bilinear upscale (atol 1e-6); the same size is the
-    identity."""
-    x = np.random.RandomState(10).rand(B, H, W, 1).astype(np.float32)
-    ref = np.asarray(jax_resize_bilinear(jnp.asarray(x), *hw))
-    got = torch_to_nhwc(resize_bilinear(nhwc_to_torch(x), *hw))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
