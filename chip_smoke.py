@@ -20,6 +20,12 @@
                                        # every (g, nv) plan and every gather
                                        # at one corner; D: a copy of the
                                        # output)
+    python3 chip_smoke.py --dp_rank OUT.json ARGS...
+                                       # one rank of `dp_world2` (which
+                                       # starts two): the training CLI with
+                                       # ARGS under torchrun's variables from
+                                       # the environment, its steps, launches
+                                       # and collectives written to OUT.json
 
 Drives the port's serving paths (`ppeadepth_tpu_torch.serve.
 InferenceSession`) at the shipped configuration (RepLKNet-31B + PEA
@@ -58,10 +64,11 @@ at the legacy eval's f32 C=64):
     f32 C=64) from seeded legacy-format checkpoints: the student,
     --eval_teacher, --zero_cost_volume and --static_camera against the CPU,
     then --save_pred_disps, --ext_disp_to_eval and the benchmark PNGs;
-  * --fast_pipeline: the native loader built from native/loader.cc (decode
-    against PIL), the augment on the card against the CPU, and the training
-    CLI of above under --fast_pipeline --decode_cache beside the threaded
-    loader's rate;
+  * --fast_pipeline: the native loader built from the port's
+    csrc/loader.cc against the vendored libjpeg-turbo headers and the
+    libjpeg that Pillow bundles (decode against PIL), the augment on the
+    card against the CPU, and the training CLI of above under
+    --fast_pipeline --decode_cache beside the threaded loader's rate;
   * --grad_accum 2: one f32 step at B=4 against the same step on the CPU,
     and 1 + 3 bf16 steps at B=12 (two microbatches of 6: twice stage 1's
     launches), beside stage 1's wall and peak;
@@ -81,8 +88,10 @@ at the legacy eval's f32 C=64):
     --num_layers 50`) on the synthetic KITTI set against the CPU;
   * data parallelism at world size 1 (`dp_world1`): the training CLI under
     a process group over NCCL against the same run without one, f32, one
-    epoch of 3 steps, the collectives counted (two ranks on one card are
-    refused by NCCL; tests/test_torch_dp.py runs two on the CPU);
+    epoch of 3 steps, the collectives counted; and at world size 2
+    (`dp_world2`): two OS processes, ranks 0 and 1 over gloo on card 0
+    (NCCL refuses two ranks on one card), each the training CLI at B=6 of
+    the global 12, against the same run without a group;
   * the stage-2 CLI on a synthetic CityScapes set (`--train_cs --dc --ktf
     --learning_rate 1e-5` from the KITTI run's final checkpoint: from step
     0, 2 epochs of 2 steps, a validation on the cityscapes_eval layout),
@@ -189,6 +198,8 @@ BREADTH_VARIANTS = (1, 0, 5, 6)
 BREADTH_STEPS = 3       # timed breadth training steps, after one warm-up step
 DP_EPOCHS = 1           # dp_world1: one epoch of the CLI, 3 steps of B=12
 DP_DRIFT_REL = 5e-3     # ... each step's loss against the plain run's
+DP_WORLD = 2            # dp_world2's ranks, both on card 0 over gloo
+DP_RANK_TIMEOUT = 600   # seconds a rank may take, start-up included
 DYN_REL_TOL = C_REL_TOL  # the dyn volume on the card vs the CPU, off the
                          # edge-mask boundaries: max|d| <= tol x max|ref|
 CHUNK_ITEMS = 4         # the dyn volume timed also at this many items a chunk
@@ -2332,9 +2343,8 @@ def dp_world1():
     loss within DP_DRIFT_REL relative, each step's launches
     `_expected_launches`, the all-reduces and broadcasts counted
     (`parallel.dist.collective_counts`); the medians and peaks of both runs
-    printed. Returns the process-group run's counts."""
-    import socket
-
+    printed. Returns the process-group run's counts and the plain run's
+    steps (`dp_world2` compares with them)."""
     import numpy as np
     import torch
 
@@ -2346,21 +2356,13 @@ def dp_world1():
     for tag in ("plain", "dp"):
         env = {}
         if tag == "dp":
-            sock = socket.socket()
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-            sock.close()
             env = dict(PPEA_DISTRIBUTED="1", RANK="0", WORLD_SIZE="1",
                        LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                       MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         dist.collective_counts.clear()
-        args = _cli_args(["--compute_dtype", "float32", "--weights_init",
-                          "scratch", "--num_epochs", str(DP_EPOCHS),
-                          "--validate_every", "0", "--log_dir", "dp_ckpt",
-                          "--name", tag, "--pytorch_random_seed", "0",
-                          "--load_weights_folder", "seed"])
+        args = _dp_args(tag)
         steps, vals = [], []
         try:
             trainer, wall, counts = _run_cli(args, steps, vals)
@@ -2392,25 +2394,196 @@ def dp_world1():
         del trainer
     (s_plain, c_plain, n_plain, _), (s_dp, c_dp, n_dp, counts) = (
         runs["plain"], runs["dp"])
-    if len(s_dp) != len(s_plain) or not s_plain:
-        raise AssertionError("dp_world1: the runs took different steps")
-    # the first step starts from the same weights; after it, entries whose
-    # gradient is near zero have moved lr of either sign in the two runs
-    # (tests/test_torch_train_step.py's four-step check: 5e-3 relative)
-    first = max(abs(s_plain[0][3][k] - s_dp[0][3][k]) for k in s_plain[0][3])
-    later = max(abs(a[3]["loss"] / b[3]["loss"] - 1)
-                for a, b in zip(s_plain, s_dp))
-    print(f"dp_world1: against the run without a process group, max |d metric| "
-          f"at the first step {first:.3e} (tol {PARITY_METRIC_TOL:g}), the "
-          f"loss's largest relative difference over {len(s_dp)} steps "
-          f"{later:.3e} (tol {DP_DRIFT_REL:g})")
+    first, later = _dp_drift("dp_world1", s_plain, [m for *_, m, _ in s_dp])
     if not (first <= PARITY_METRIC_TOL and later <= DP_DRIFT_REL
             and c_plain == {} and n_plain == 0
             and n_dp > 0 and c_dp.get("all_reduce", 0) > 0
             and c_dp.get("broadcast", 0) > 0):
         raise AssertionError("dp_world1: the process-group run disagrees with "
                              "the plain run, or its collectives did not run")
-    return counts
+    return counts, s_plain
+
+
+def _free_port():
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _dp_args(name):
+    """The CLI flags of the data-parallel runs: f32, DP_EPOCHS epoch of the
+    global B=12 from the seed checkpoint, no validation."""
+    return _cli_args(["--compute_dtype", "float32", "--weights_init",
+                      "scratch", "--num_epochs", str(DP_EPOCHS),
+                      "--validate_every", "0", "--log_dir", "dp_ckpt",
+                      "--name", name, "--pytorch_random_seed", "0",
+                      "--load_weights_folder", "seed"])
+
+
+def _dp_drift(tag, plain, metrics):
+    """(max |d metric| at the first step, the loss's largest relative
+    difference over the steps) of a data-parallel run's per-step
+    `metrics` against the plain run's steps, printed."""
+    if len(metrics) != len(plain) or not plain:
+        raise AssertionError(f"{tag}: {len(metrics)} steps, the plain run "
+                             f"{len(plain)}")
+    # the first step starts from the same weights; after it, entries whose
+    # gradient is near zero have moved lr of either sign in the two runs
+    # (tests/test_torch_train_step.py's four-step check: 5e-3 relative)
+    first = max(abs(plain[0][3][k] - metrics[0][k]) for k in plain[0][3])
+    later = max(abs(m["loss"] / a[3]["loss"] - 1) for a, m in zip(plain, metrics))
+    print(f"{tag}: against the run without a process group, max |d metric| "
+          f"at the first step {first:.3e} (tol {PARITY_METRIC_TOL:g}), the "
+          f"loss's largest relative difference over {len(metrics)} steps "
+          f"{later:.3e} (tol {DP_DRIFT_REL:g})")
+    return first, later
+
+
+def dp_rank(out, args):
+    """One rank of `dp_world2`, in its own process: the training CLI with
+    `args` (`_run_cli`; the process group from torchrun's variables in the
+    environment), TF32 off as in the parent run; writes to `out` (JSON)
+    this rank's card, each step's milliseconds, launches and metrics, the
+    run's counts and collectives, its GlobalBatchNorm modules, peak device
+    memory and the checkpoint folders it wrote (None where it wrote
+    none)."""
+    import torch
+
+    from ppeadepth_tpu_torch.parallel import dist
+    from ppeadepth_tpu_torch.train import trainer as trainer_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    save_model, saved = trainer_mod.Trainer.save_model, []
+
+    def recorded_save(self, suffix):
+        folder = save_model(self, suffix)
+        saved.append(folder)
+        return folder
+
+    trainer_mod.Trainer.save_model = recorded_save
+    steps = []
+    trainer, wall, counts = _run_cli(args, steps, [])
+    rec = dict(rank=int(os.environ["RANK"]), card=torch.cuda.current_device(),
+               steps=[dict(ms=(e - s) * 1e3, launched=c, metrics=m)
+                      for s, e, c, m, _ in steps],
+               counts=counts, collectives=dict(dist.collective_counts),
+               n_bn=sum(isinstance(m, dist.GlobalBatchNorm)
+                        for m in trainer.model.modules()),
+               peak=torch.cuda.max_memory_allocated(), wall=wall, saved=saved,
+               metrics_file=trainer._metrics_file is not None)
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+def dp_world2(plain):
+    """Data parallelism at world size 2 on one card: DP_WORLD OS processes
+    (`python3 chip_smoke.py --dp_rank`, as tests/torch_dist_worker.py runs
+    ranks on the CPU), ranks 0 and 1 of a gloo group
+    (PPEA_DIST_BACKEND=gloo: NCCL refuses two ranks on one card), each
+    taking card LOCAL_RANK % device_count(), card 0 here, and running
+    `dp_world1`'s CLI (`_dp_args`) on its B=6 of the global B=12. Holds
+    the first step's metrics within PARITY_METRIC_TOL of `plain`
+    (`dp_world1`'s run without a group) and every step's loss within
+    DP_DRIFT_REL; each rank's launches a step to `_expected_launches`;
+    all-reduces and broadcasts counted and every BN a GlobalBatchNorm on
+    both ranks; checkpoints and metrics.jsonl from rank 0 only. A rank
+    that fails or outlasts DP_RANK_TIMEOUT fails the run. Prints each
+    rank's median step and peak memory: two processes on one card check
+    correctness on CUDA tensors across ranks, not multi-card speed.
+    Returns the launch counts of both ranks summed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    opt = TRAIN_B.replace(compute_dtype="float32")
+    expected = _expected_launches(opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dp_world2: this process holds {torch.cuda.memory_reserved()} "
+          f"bytes of the card while its {DP_WORLD} ranks run")
+    env = dict(os.environ, PPEA_DISTRIBUTED="1", PPEA_DIST_BACKEND="gloo",
+               WORLD_SIZE=str(DP_WORLD), LOCAL_WORLD_SIZE=str(DP_WORLD),
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    args = _dp_args("world2")
+    outs = [os.path.abspath(f"dp_rank{r}.json") for r in range(DP_WORLD)]
+    logs = [open(f"dp_rank{r}.log", "w") for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp_rank", outs[r], *args],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_RANK_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(f"dp_rank{r}.log") as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"dp_world2: rank {r} exited with "
+                                 f"{p.returncode} after {wall:.2f} s "
+                                 f"(limit {DP_RANK_TIMEOUT} s):\n{tail}")
+    ranks = []
+    for out in outs:
+        with open(out) as fh:
+            ranks.append(json.load(fh))
+    n_cards = torch.cuda.device_count()
+    for r, rec in enumerate(ranks):
+        ms = [s["ms"] for s in rec["steps"]]
+        print(f"dp_world2 rank {r} on card {rec['card']}: {len(ms)} f32 steps "
+              f"of B={EVAL_BATCH // DP_WORLD} (global {EVAL_BATCH}) 640x192 in "
+              f"a {rec['wall']:.2f} s CLI run; steps {[round(t, 3) for t in ms]} "
+              f"ms, median after the first {float(np.median(ms[1:])):.3f} ms; "
+              f"peak device memory {rec['peak']} bytes "
+              f"({rec['peak'] / 2**30:.3f} GiB); GlobalBatchNorm modules "
+              f"{rec['n_bn']}; collectives {rec['collectives']}; checkpoints "
+              f"written {rec['saved']}; losses "
+              f"{[round(s['metrics']['loss'], 6) for s in rec['steps']]} "
+              f"(two processes sharing one card: a correctness check on CUDA "
+              f"tensors, not multi-card speed)")
+        for i, s in enumerate(rec["steps"]):
+            if s["launched"] != expected:
+                raise AssertionError(f"dp_world2 rank {r} step {i}: launches "
+                                     f"{s['launched']}, expected {expected}")
+        main = r == 0  # writes every checkpoint and metrics.jsonl, alone
+        if not (rec["rank"] == r and rec["card"] == r % n_cards
+                and rec["n_bn"] > 0
+                and rec["collectives"].get("all_reduce", 0) > 0
+                and rec["collectives"].get("broadcast", 0) > 0
+                and rec["saved"] and rec["metrics_file"] == main
+                and all((f is not None) == main for f in rec["saved"])):
+            raise AssertionError(f"dp_world2: rank {r} ran on card "
+                                 f"{rec['card']} with {rec['n_bn']} global BNs, "
+                                 f"collectives {rec['collectives']}, checkpoints "
+                                 f"{rec['saved']}, metrics.jsonl "
+                                 f"{rec['metrics_file']}")
+    # every rank reports the same metrics (averaged over the ranks)
+    for a, b in zip(ranks[0]["steps"], ranks[1]["steps"]):
+        if a["metrics"] != b["metrics"]:
+            raise AssertionError(f"dp_world2: the ranks' metrics differ: "
+                                 f"{a['metrics']} against {b['metrics']}")
+    first, later = _dp_drift("dp_world2", plain,
+                             [s["metrics"] for s in ranks[0]["steps"]])
+    print(f"dp_world2: {DP_WORLD} ranks done in {wall:.2f} s")
+    if not (first <= PARITY_METRIC_TOL and later <= DP_DRIFT_REL):
+        raise AssertionError("dp_world2: the two-rank run disagrees with the "
+                             "plain run")
+    return {k: sum(rec["counts"][k] for rec in ranks) for k in ranks[0]["counts"]}
 
 
 def check_dyn_volume(dev, rng, opt=DYN_B):
@@ -2876,13 +3049,13 @@ def check_fast_pipeline(dev):
     """--fast_pipeline's pieces: `augment_batch` on the card against the
     CPU on the same frames and factors at B=12, 640x192, every scale, a
     blank frame included, and `prepare_batch`'s wall at that size (3 frames
-    of u8); then the native loader built from native/loader.cc into
-    build/native/ (its build time) and its decode against PIL within
-    tests/test_native_loader.py's bounds (equal at the native size,
-    resized within 12 of PIL's bilinear on average, a missing file blank).
-    A machine without libjpeg's headers cannot build the loader: then the
-    build's error (which must be the missing jpeglib.h) is printed and
-    False returned, and --fast_pipeline raises there (`train_cli_fast`)."""
+    of u8); then the native loader built from the port's csrc/loader.cc
+    into build/native/ against the vendored libjpeg-turbo headers and
+    Pillow's libjpeg (its command, build time and the libjpeg it needs)
+    and its decode against PIL within tests/test_native_loader.py's bounds
+    (equal at the native size, resized within 12 of PIL's bilinear on
+    average, a missing file blank). A failed build fails the run:
+    --fast_pipeline has no fallback."""
     import os
 
     import numpy as np
@@ -2933,21 +3106,19 @@ def check_fast_pipeline(dev):
           f"{[round(t, 3) for t in times]} ms")
 
     t0 = time.perf_counter()
-    try:
-        path = NL.build()
-    except RuntimeError as e:
-        if "jpeglib.h: No such file" not in str(e):
-            raise
-        print(f"fast pipeline: the native loader does not build on this "
-              f"machine (no libjpeg headers), so --fast_pipeline raises here: "
-              f"{' | '.join(str(e).splitlines()[:3])[:400]}")
-        return False
+    libjpeg = NL.find_libjpeg()
+    path = NL.build()
+    needed = [line.split("[")[1].rstrip("]") for line in subprocess.run(
+        ["readelf", "-d", str(path)], capture_output=True, text=True,
+        check=True).stdout.splitlines() if "(NEEDED)" in line]
     print(f"fast pipeline: native loader {path} built in "
           f"{time.perf_counter() - t0:.2f} s (g++ "
-          f"{NL.build_log.get('seconds', 0.0):.2f} s: "
-          f"{NL.build_log.get('command', 'found built')})")
-    if path.parent != NL.BUILD_DIR or NL.BUILD_DIR.parent.name != "build":
-        raise AssertionError(f"fast pipeline: library at {path}")
+          f"{NL.build_log.get('seconds', 0.0):.2f} s) by: "
+          f"{' '.join(NL.command(str(path), libjpeg))}; it needs {needed}")
+    if (path.parent != NL.BUILD_DIR or NL.BUILD_DIR.parent.name != "build"
+            or libjpeg.name not in needed):
+        raise AssertionError(f"fast pipeline: library at {path}, needing "
+                             f"{needed}, not Pillow's {libjpeg}")
     with tempfile.TemporaryDirectory() as tmp:
         arr = (rng.rand(128, 192, 3) * 255).astype(np.uint8)
         for _ in range(4):
@@ -2969,17 +3140,14 @@ def check_fast_pipeline(dev):
         if not (np.array_equal(full, pil) and mad < 12.0 and not batch[1].any()
                 and np.array_equal(batch[0], small)):
             raise AssertionError("fast pipeline: the native decode disagrees with PIL")
-    return True
 
 
-def train_cli_fast(classic_rate, built):
+def train_cli_fast(classic_rate):
     """The training CLI of `train_cli` under `--fast_pipeline --decode_cache
     cache` (name "fast"), in-process, with its checks (`_check_cli_run`):
     the decode cache's files exist and every frame is present when epoch 1
     starts; its loop rate beside the threaded loader's (`classic_rate`,
-    images/s). Returns the run's counts. Where the native loader does not
-    build (`built` False) the CLI must raise with g++'s message; returns
-    None."""
+    images/s). Returns the run's counts."""
     import os
 
     import torch
@@ -2992,18 +3160,6 @@ def train_cli_fast(classic_rate, built):
                       "--pytorch_random_seed", "0", "--load_weights_folder", "seed",
                       "--fast_pipeline", "--decode_cache", "cache"])
     print("fast CLI: python -m ppeadepth_tpu_torch.train " + " ".join(args))
-    if not built:
-        from ppeadepth_tpu_torch.train import __main__ as cli
-
-        try:
-            cli.main(args)
-        except RuntimeError as e:
-            if "jpeglib.h: No such file" not in str(e):
-                raise
-            print("fast CLI: raises without the native loader, as it must "
-                  "(no fallback)")
-            return None
-        raise AssertionError("fast CLI: trained without its native loader")
     pipeline = fast_pipeline.FastDecodePipeline
     set_epoch, cache_at = pipeline.set_epoch, {}
 
@@ -3111,6 +3267,9 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "the port's smoke run needs a CUDA card")
     args = sys.argv[1:]
+    if args[:1] == ["--dp_rank"] and len(args) > 2:
+        dp_rank(args[1], args[2:])
+        return
     only = args[args.index("--kernel") + 1] if "--kernel" in args[:-1] else None
     if "--kernel" in args and only not in ("A", "B", "C", "D"):
         raise SystemExit("chip_smoke: --kernel takes A, B, C or D (that "
@@ -3197,7 +3356,7 @@ def main():
     lk2_mb = check_lk_train(dev, rng, TRAIN_B, MICRO_BATCH)
     c_mb = check_plane_sweep(dev, rng, MICRO_BATCH, SHIPPED_B, (torch.bfloat16,))
     d_mb = check_warp(dev, rng, SHIPPED_B, MICRO_BATCH)
-    loader_built = check_fast_pipeline(dev)
+    check_fast_pipeline(dev)
     # adpt_test 2's ConvFFN adapter is C/2 wide: kernel B at a 4.5C hidden
     b2 = check_ffn_fused(dev, rng, adapter_div=2)
 
@@ -3290,10 +3449,10 @@ def main():
             by_path["eval_ddad"] = eval_cli(final, False, "ddad")
             by_path["eval_ori"] = eval_ori_cli()
             by_path["eval_ori_r50"] = eval_ori_r50()
-            by_path["dp_world1"] = dp_world1()
-            fast = train_cli_fast(rate, loader_built)
-            if fast is not None:
-                by_path["train_cli_fast"] = fast
+            by_path["dp_world1"], plain = dp_world1()
+            by_path["dp_world2"] = dp_world2(plain)
+            del plain
+            by_path["train_cli_fast"] = train_cli_fast(rate)
             # stage 2 from the KITTI run's final checkpoint, its CityScapes
             # eval, and serving its checkpoint
             cs_final, by_path["train_cli_stage2"] = train_cli_stage2(final)

@@ -1,19 +1,24 @@
 """ctypes binding to the native JPEG decode + resize core
-(`native/loader.cc`, framework-free C++ over libjpeg; JAX counterpart:
-data/native_loader.py).
+(`csrc/loader.cc`, framework-free C++ over libjpeg; JAX counterpart:
+data/native_loader.py, which builds its own copy in native/).
 
 The library is built with g++ at first use into `build/native/` at the
-repository root, named by a hash of the source and flags, and written
-under a temporary name then renamed, as `kernels/build.py` builds the
-CUDA kernels; the JAX binding's own build next to the source is left
-alone. A failed build raises with the compiler's message: there is no
-fallback decoder.
+repository root, named by a hash of the source, the flags and the libjpeg
+it links, and written under a temporary name then renamed, as
+`kernels/build.py` builds the CUDA kernels. It compiles against the
+libjpeg-turbo 2.1.5 headers vendored in `third_party/libjpeg-turbo/`
+(libjpeg's 6.2 ABI, `JPEG_LIB_VERSION` 62) and links, by path, the libjpeg
+`.so.62` that the installed Pillow wheel bundles (`pillow.libs/`), with
+that directory as its run path: the same recipe on every machine, with no
+system libjpeg or its headers needed. A failed build, or a Pillow without
+a bundled libjpeg, raises: there is no fallback decoder.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import subprocess
 import tempfile
@@ -24,27 +29,60 @@ from typing import List
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "loader.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+PACKAGE = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE / "csrc" / "loader.cc"
+JPEG_INCLUDE = PACKAGE / "third_party" / "libjpeg-turbo"
+BUILD_DIR = PACKAGE.parent / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared")
-LINK_FLAGS = ("-ljpeg", "-pthread")
+# the directories a Pillow wheel keeps its bundled libraries in, beside PIL/
+PILLOW_LIB_DIRS = ("pillow.libs", "Pillow.libs")
 
 _lock = threading.Lock()
 _lib = None
 build_log: dict = {}
 
 
-def library_path() -> Path:
-    """Where the library of this source and these flags lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+def find_libjpeg() -> Path:
+    """The libjpeg `.so.62` of the installed Pillow wheel: the first, by
+    name, of `libjpeg*.so.62*` in the wheel's library directory beside
+    `PIL/`. Raises, naming where it looked, if there is none."""
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or spec.origin is None:
+        raise RuntimeError("the native loader links the libjpeg that Pillow "
+                           "bundles, and Pillow is not installed")
+    site = Path(spec.origin).resolve().parents[1]
+    dirs = [site / d for d in PILLOW_LIB_DIRS]
+    for d in dirs:
+        found = sorted(d.glob("libjpeg*.so.62*"))
+        if found:
+            return found[0]
+    raise RuntimeError("the native loader links the libjpeg that Pillow "
+                       "bundles, and found no libjpeg*.so.62* in "
+                       + " or ".join(map(str, dirs)))
+
+
+def command(out: str, libjpeg: Path) -> List[str]:
+    """The g++ command that builds the library into `out`, linking the
+    libjpeg at `libjpeg` by path with its directory as the run path."""
+    return ["g++", *CXX_FLAGS, f"-I{JPEG_INCLUDE}", "-o", out, str(SOURCE),
+            str(libjpeg), f"-Wl,-rpath,{libjpeg.parent}", "-pthread"]
+
+
+def library_path(libjpeg: Path | None = None) -> Path:
+    """Where the library of this source, these flags, these headers and
+    this libjpeg (`find_libjpeg()` by default) lives."""
+    libjpeg = find_libjpeg() if libjpeg is None else libjpeg
+    h = hashlib.sha256(" ".join(command("", libjpeg)).encode())
+    for f in (SOURCE, *sorted(JPEG_INCLUDE.glob("*.h"))):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libppea_loader_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
     """Compile the library unless a build of this source exists; returns
-    its path and records the compile time in `build_log`."""
-    path = library_path()
+    its path and records the compile time and command in `build_log`."""
+    libjpeg = find_libjpeg()
+    path = library_path(libjpeg)
     if path.exists():
         build_log.setdefault("seconds", 0.0)
         return path
@@ -52,7 +90,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
         tmp = str(Path(tmp_dir) / path.name)
-        cmd = ["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE), *LINK_FLAGS]
+        cmd = command(tmp, libjpeg)
         try:
             res = subprocess.run(cmd, capture_output=True, text=True)
         except FileNotFoundError as e:

@@ -46,7 +46,8 @@ class ResnetEncoderMatching(nn.Module):
         super().__init__()
         if num_layers != 18:
             raise NotImplementedError(
-                f"ResnetEncoderMatching({num_layers}): only ResNet-18 is ported")
+                f"ResnetEncoderMatching({num_layers}): the legacy matching "
+                f"encoder is ResNet-18 only, as in the JAX package")
         self.num_depth_bins = num_depth_bins
         self.depth_binning = depth_binning
         self.layer0 = nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False),

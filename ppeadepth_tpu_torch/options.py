@@ -164,11 +164,10 @@ class Config:
     remat_policy: str = "full"  # full | save_warps
     frozen_bf16: str = "auto"  # auto | on | off
     remat_pose: bool = True
-    # gradient accumulation over N microbatches (not ported yet: the
-    # Trainer raises for N > 1)
+    # gradient accumulation over N microbatches (train/step.py)
     grad_accum: int = 1
     # native decode + device-side augment, with its decoded-raw epoch
-    # cache directory (not ported yet: the Trainer raises)
+    # cache directory (data/fast_pipeline.py)
     fast_pipeline: bool = False
     decode_cache: str = ""
     merged: bool = False             # deploy: reparam-merged LK convs

@@ -5,7 +5,13 @@ replicates the state, with GSPMD adding the collectives).
 Launch: `PPEA_DISTRIBUTED=1 torchrun --nproc_per_node N -m
 ppeadepth_tpu_torch.train ...` (torchrun sets RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT; `init_from_env` reads them).
-NCCL joins the cards, gloo the CPU processes of the tests. There is no
+NCCL joins the cards, gloo the CPU processes of the tests. On the cards
+`PPEA_DIST_BACKEND=gloo` asks for gloo instead (as the JAX package's own
+multi-process test takes gloo's CPU collectives): gloo lets several ranks
+share a card, which NCCL refuses, so a one-card machine can run two
+ranks; the collectives then stage the card's tensors through the host.
+The card rule: rank LOCAL_RANK takes card LOCAL_RANK under NCCL (one card
+a rank), and card LOCAL_RANK % device_count() under gloo. There is no
 `nn.DataParallel` and no DDP wrapper: the training step averages the
 gradients itself (`average_gradients`), after the backward of every
 microbatch, as the JAX step's psum does.
@@ -51,16 +57,49 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", "0"))
 
 
+def backend_for(device_type: str, environ=os.environ) -> str:
+    """The process group's backend: NCCL on the cards unless
+    PPEA_DIST_BACKEND=gloo, gloo on the CPU. An NCCL group that fails is
+    an error, never retried as gloo."""
+    asked = environ.get("PPEA_DIST_BACKEND", "")
+    if asked not in ("", "nccl", "gloo"):
+        raise ValueError(f"PPEA_DIST_BACKEND={asked!r}: nccl or gloo")
+    if device_type != "cuda":
+        if asked == "nccl":
+            raise ValueError("PPEA_DIST_BACKEND=nccl needs the cards; the "
+                             "CPU's processes take gloo")
+        return "gloo"
+    return asked or "nccl"
+
+
+def card_for(local: int, n_cards: int, backend: str) -> int:
+    """The card of the rank with LOCAL_RANK `local` on a machine of
+    `n_cards`: its own under NCCL, shared round robin under gloo."""
+    if n_cards < 1:
+        raise RuntimeError("no CUDA card for a rank on the cards")
+    if backend == "gloo":
+        return local % n_cards
+    if local >= n_cards:
+        raise RuntimeError(f"LOCAL_RANK {local} under NCCL needs a card of "
+                           f"its own and the machine has {n_cards}; "
+                           f"PPEA_DIST_BACKEND=gloo lets ranks share one")
+    return local
+
+
 def init_from_env(device_type: str = "cuda") -> bool:
     """Join the process group that torchrun's variables describe (env://)
-    when `requested()`: NCCL on the cards, each process on card
-    LOCAL_RANK, gloo on the CPU. Returns whether a group is up."""
+    when `requested()`, over `backend_for(device_type)`; on the cards
+    first make `card_for` this rank's current card, the one that
+    `train.trainer.resolve_device("cuda")` then gives it. Returns whether
+    a group is up."""
     if not requested():
         return False
     if not dist.is_initialized():
+        backend = backend_for(device_type)
         if device_type == "cuda":
-            torch.cuda.set_device(local_rank())
-        dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+            torch.cuda.set_device(card_for(
+                local_rank(), torch.cuda.device_count(), backend))
+        dist.init_process_group(backend)
     return True
 
 

@@ -57,7 +57,8 @@ def readlines(path):
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device must exist (the CLI runs
     on the card and does not fall back to the CPU). A bare "cuda" is the
-    current card (a data-parallel rank's own)."""
+    current card: a data-parallel rank's, which `parallel.dist.init_from_env`
+    set by its card rule (`card_for`)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("a CUDA device was asked for and none is "

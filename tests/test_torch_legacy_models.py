@@ -4,8 +4,10 @@ modules in f32 at 64x96, 8 linear bins, B=2, one lookup frame, with drawn
 BN statistics; the legacy names that `ckpt/convert` writes, read back by
 the JAX importer; and a legacy-format file loaded strictly.
 
-The JAX reference runs eagerly (`jax.disable_jit`): no compile in this
-file.
+The JAX reference is compiled (`torch_parity.compile_reference`), once
+for the encoder and once for the decoder: on the CPU that takes less time
+than running them eagerly, where every operation compiles on its first
+use.
 """
 
 import jax
@@ -24,7 +26,8 @@ from ppeadepth_tpu_torch.ckpt.convert import legacy_state_dict_from_jax
 from ppeadepth_tpu_torch.eval_depth_ori import legacy_state_dict
 from ppeadepth_tpu_torch.models.resnet_matching import (
     DepthDecoder, ResnetEncoderMatching)
-from tests.torch_parity import nhwc_to_torch, random_tree, torch_to_nhwc
+from tests.torch_parity import (
+    compile_reference, nhwc_to_torch, random_tree, torch_to_nhwc)
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B, BINS = 64, 96, 2, 8
@@ -53,7 +56,7 @@ def _args():
 
 @pytest.fixture(scope="module")
 def legacy():
-    """JAX outputs (encoder, decoder) of drawn trees, eagerly, and the
+    """JAX outputs (encoder, decoder) of drawn trees, compiled, and the
     port's modules loaded from them through `legacy_state_dict_from_jax`."""
     args = _args()
     jargs = tuple(jnp.asarray(a) for a in args) + (MIN_BIN, MAX_BIN)
@@ -63,11 +66,11 @@ def legacy():
     rng = np.random.RandomState(6)
     enc_s = jax.eval_shape(lambda: jenc.init(key, *jargs))
     enc_v = {k: random_tree(v, rng) for k, v in enc_s.items()}
-    with jax.disable_jit():
-        feats, lowest, conf = jenc.apply(enc_v, *jargs)
-        dec_s = jax.eval_shape(lambda: jdec.init(key, feats))
-        dec_v = {k: random_tree(v, rng) for k, v in dec_s.items()}
-        disps = jdec.apply(dec_v, feats)
+    feats, lowest, conf = compile_reference(jenc.apply, enc_v, *jargs)(
+        enc_v, *jargs)
+    dec_s = jax.eval_shape(lambda: jdec.init(key, feats))
+    dec_v = {k: random_tree(v, rng) for k, v in dec_s.items()}
+    disps = compile_reference(jdec.apply, dec_v, feats)(dec_v, feats)
     enc = ResnetEncoderMatching(18, BINS, "linear").eval()
     enc.load_state_dict(legacy_state_dict_from_jax(
         enc_v["params"], enc_v["batch_stats"], "encoder"), strict=True)

@@ -12,8 +12,11 @@ against JAX on the CPU, in f32 at 64x96:
     synthetic KITTI set (`torch_parity.kitti_set`) against JAX
     `eval_depth_ori`, from the same legacy-format files.
 
-The JAX references run eagerly (`jax.disable_jit`): no compile in this
-file. atol 2e-4 on features and disparities (f32 summation order)."""
+The ResNet-50 references are compiled (`torch_parity.compile_reference`)
+and JAX `eval_depth_ori` jits its own step: on the CPU that takes less
+time than running them eagerly, where every operation compiles on its
+first use; PoseCNN's runs eagerly. atol 2e-4 on features and disparities
+(f32 summation order)."""
 
 import os
 
@@ -34,7 +37,7 @@ from ppeadepth_tpu_torch.models.pose import PoseCNN
 from ppeadepth_tpu_torch.models.resnet import ResnetEncoder
 from ppeadepth_tpu_torch.models.resnet_matching import DepthDecoder
 from tests.test_torch_eval_ori import draw_weights
-from tests.torch_parity import kitti_set, random_tree
+from tests.torch_parity import compile_reference, kitti_set, random_tree
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, B = 64, 96, 2
@@ -73,11 +76,11 @@ def test_resnet50_matches_jax(resnet50, train):
     observed 7.7e-5 of it at layer 4)."""
     jm, params, stats, x = resnet50
     v = {"params": params, "batch_stats": stats}
-    with jax.disable_jit():
-        if train:
-            ref, upd = jm.apply(v, jnp.asarray(x), True, mutable=["batch_stats"])
-        else:
-            ref = jm.apply(v, jnp.asarray(x), False)
+    if train:
+        ref, upd = compile_reference(
+            lambda v, x: jm.apply(v, x, True, mutable=["batch_stats"]), v, x)(v, x)
+    else:
+        ref = compile_reference(lambda v, x: jm.apply(v, x, False), v, x)(v, x)
     model = ResnetEncoder(50)
     assert model.num_ch_enc == (64, 256, 512, 1024, 2048)
     model.load_state_dict(legacy_state_dict_from_jax(params, stats, "resnet"),
@@ -138,8 +141,7 @@ def test_eval_ori_teacher_resnet50_matches_jax(tmp_path):
                  eval_split="tiny", height=H, width=W, batch_size=2,
                  num_workers=1, eval_teacher=True, num_layers=50)
     got = port_eval.predict_disps(opt, splits_dir, device="cpu")
-    with jax.disable_jit():
-        ref = np.asarray(jax_eval.predict_disps(opt, splits_dir))
+    ref = np.asarray(jax_eval.predict_disps(opt, splits_dir))
     assert got.shape == ref.shape == (4, H, W) and np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
     errors = port_eval.evaluate(opt, splits_dir, device="cpu")
