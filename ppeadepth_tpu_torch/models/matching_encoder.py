@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import cost_volume as CV
+from ..utils.trace import span
 from .replknet import RepLKNet
 
 
@@ -70,7 +71,7 @@ class RepLKMatching(nn.Module):
         confidence [B, H/4, W/4])."""
         B, F_ = lookup_images.shape[:2]
         cur = self.feature_extraction(current_image, generator)
-        with torch.no_grad():
+        with span("model.cost_volume"), torch.no_grad():
             lk = self.feature_extraction(lookup_images.flatten(0, 1), generator)
             lk = lk.reshape(B, F_, *lk.shape[1:])
             # f32 geometry: outside any bf16 autocast region

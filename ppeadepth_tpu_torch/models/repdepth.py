@@ -24,6 +24,7 @@ import torch.nn as nn
 
 from ..core.geometry import transformation_from_parameters
 from ..ops.resize import resize_nearest
+from ..utils.trace import span
 from .blocks import DepthwiseConv
 from .depth_decoder import DepthDecoderV2
 from .matching_encoder import RepLKMatching
@@ -117,13 +118,17 @@ class RepDepth(nn.Module):
         """Teacher single-frame path: image [B, 3, H, W] ->
         {("disp", 0): [B, 1, H, W]} (trainer.py:751, evaluate_depth.py:167).
         `generator` draws the drop-path masks in training."""
-        return self.mono_depth(self.mono_encoder(image, generator))
+        with span("model.teacher_encoder"):
+            features = self.mono_encoder(image, generator)
+        with span("model.decoder"):
+            return self.mono_depth(features)
 
     def pose_pair(self, a, b, invert: bool = False):
         """Pose from a temporally ordered image pair [B, 3, H, W] each, in
         float32 with TF32 off and autocast off (JAX `_pose_pair`, without
         remat). Returns (axisangle, translation [B, 2, 1, 3], T [B, 4, 4])."""
-        with cudnn_without_tf32(), torch.autocast(a.device.type, enabled=False):
+        with (span("model.pose"), cudnn_without_tf32(),
+              torch.autocast(a.device.type, enabled=False)):
             feats = self.pose_encoder(torch.cat([a, b], 1).float())
             axisangle, translation = self.pose(feats)
             T = transformation_from_parameters(
@@ -140,11 +145,13 @@ class RepDepth(nn.Module):
         (Config's defaults where the object lacks them); aug_mask [B, 1, 1,
         1] gates its in-fill (zeros when None)."""
         opt = self.opt
-        features, lowest_cost, conf = self.encoder(
-            image, lookup_frames, rel_poses, K2, invK2, min_depth_bin,
-            max_depth_bin, generator, aug_mask=aug_mask, dyn=opt.dyn_cv,
-            **{k: getattr(opt, k, v) for k, v in _CV_DEFAULTS.items()})
-        return self.depth(features), lowest_cost, conf
+        with span("model.student_encoder"):
+            features, lowest_cost, conf = self.encoder(
+                image, lookup_frames, rel_poses, K2, invK2, min_depth_bin,
+                max_depth_bin, generator, aug_mask=aug_mask, dyn=opt.dyn_cv,
+                **{k: getattr(opt, k, v) for k, v in _CV_DEFAULTS.items()})
+        with span("model.decoder"):
+            return self.depth(features), lowest_cost, conf
 
     def predict_poses(self, inputs, stop_grad: bool = False):
         """Poses of the loss for frame_ids[1:] and the chained matching

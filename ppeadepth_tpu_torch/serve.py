@@ -17,6 +17,10 @@ CPU they run their plain versions.
 
 Images are float in [0, 1] or uint8, NHWC. Depths are metric after
 disp_to_depth with the config's min/max depth.
+
+Under a torch profiler each public call is a numbered `serve.request`
+span holding its `serve.upload` and `serve.download` spans
+(`utils.trace`), and the model's phases inside them.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .ckpt import io as ckpt_io
 from .ckpt.deploy import structural_reparam
 from .core.geometry import disp_to_depth
 from .models import RepDepth, cast_compute, init_weights
+from .utils.trace import span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -93,6 +98,12 @@ class InferenceSession:
             model.fold_ffn(self.dtype)
         cast_compute(model, self.dtype)
         self.model = model
+        self.requests = 0
+
+    def _request(self):
+        """The `serve.request` span of the next public call, numbered."""
+        self.requests += 1
+        return span("serve.request", self.requests)
 
     def _images(self, images):
         """NHWC numpy (float in [0, 1] or uint8) -> f32 [B, 3, H, W] on the
@@ -103,34 +114,43 @@ class InferenceSession:
         return x.float().permute(0, 3, 1, 2)
 
     def _depth(self, disp):
-        _, depth = disp_to_depth(disp[:, 0].float(), self.opt.min_depth,
-                                 self.opt.max_depth)
-        return depth.cpu().numpy()
+        with span("serve.download"):
+            _, depth = disp_to_depth(disp[:, 0].float(), self.opt.min_depth,
+                                     self.opt.max_depth)
+            return depth.cpu().numpy()
 
     def predict_depth(self, images) -> np.ndarray:
         """images: [B, H, W, 3] -> metric depth [B, H, W] (float32 numpy)."""
-        x = self._images(images)
-        with torch.inference_mode():
-            return self._depth(self.model.forward_mono(x)[("disp", 0)])
+        with self._request():
+            with span("serve.upload"):
+                x = self._images(images)
+            with torch.inference_mode():
+                return self._depth(self.model.forward_mono(x)[("disp", 0)])
 
     def predict_pose(self, frame_a, frame_b, invert: bool = False) -> np.ndarray:
         """Relative pose from a temporally ordered pair [B, H, W, 3] each ->
         [B, 4, 4] (float32 numpy)."""
-        a, b = self._images(frame_a), self._images(frame_b)
-        with torch.inference_mode():
-            return self.model.pose_pair(a, b, invert)[2].cpu().numpy()
+        with self._request():
+            with span("serve.upload"):
+                a, b = self._images(frame_a), self._images(frame_b)
+            with torch.inference_mode():
+                T = self.model.pose_pair(a, b, invert)[2]
+            with span("serve.download"):
+                return T.cpu().numpy()
 
     def predict_depth_multi(self, images, lookup, K, invK) -> np.ndarray:
         """Student path: current frames and the previous frames [B, H, W, 3]
         each, intrinsics K, invK [B, 4, 4] at the matching (1/4) scale ->
         metric depth [B, H, W] (float32 numpy). The pose lookup->current
         comes from the pose net, inverted, as in the JAX session."""
-        img, lk = self._images(images), self._images(lookup)
-        K = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(self.device)
-        invK = torch.as_tensor(np.asarray(invK), dtype=torch.float32).to(self.device)
-        with torch.inference_mode():
-            _, _, T = self.model.pose_pair(lk, img, invert=True)
-            out, _, _ = self.model.forward_multi(
-                img, lk[:, None], T[:, None], K, invK, self.min_depth_bin,
-                self.max_depth_bin)
-            return self._depth(out[("disp", 0)])
+        with self._request():
+            with span("serve.upload"):
+                img, lk = self._images(images), self._images(lookup)
+                K, invK = (torch.as_tensor(np.asarray(m), dtype=torch.float32)
+                           .to(self.device) for m in (K, invK))
+            with torch.inference_mode():
+                _, _, T = self.model.pose_pair(lk, img, invert=True)
+                out, _, _ = self.model.forward_multi(
+                    img, lk[:, None], T[:, None], K, invK, self.min_depth_bin,
+                    self.max_depth_bin)
+                return self._depth(out[("disp", 0)])

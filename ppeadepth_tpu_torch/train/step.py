@@ -58,6 +58,7 @@ from ..core.geometry import disp_to_depth, reproject_coords
 from ..kernels.warp import warp_border
 from ..ops.resize import resize_bilinear
 from ..parallel import dist
+from ..utils.trace import span
 from .freeze import apply_labels, param_labels
 
 _COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -251,14 +252,15 @@ def make_loss_fn(model, opt):
                 _model_inputs(inputs, opt), min_bin, max_bin, draws.aug_u,
                 freeze_tp=freeze_tp, freeze_pose=opt.freeze_pose,
                 generator=draws.drop_path)
-        mono_loss, mono_aux, mono_depth = _branch_losses(
-            inputs, mono_outputs, opt, draws.noise_mono, False)
-        # the student sees the teacher's depth (trainer.py:443-451, 859-869)
-        outputs[("mono_depth", 0, 0)] = mono_depth
-        outputs["consistency_mask"] = outputs["consistency_mask"] * L.matching_mask(
-            mono_depth.detach(), outputs["lowest_cost"])[..., 0]
-        multi_loss, multi_aux, _ = _branch_losses(
-            inputs, outputs, opt, draws.noise_multi, True)
+        with span("train.losses"):
+            mono_loss, mono_aux, mono_depth = _branch_losses(
+                inputs, mono_outputs, opt, draws.noise_mono, False)
+            # the student sees the teacher's depth (trainer.py:443-451, 859-869)
+            outputs[("mono_depth", 0, 0)] = mono_depth
+            outputs["consistency_mask"] = outputs["consistency_mask"] * L.matching_mask(
+                mono_depth.detach(), outputs["lowest_cost"])[..., 0]
+            multi_loss, multi_aux, _ = _branch_losses(
+                inputs, outputs, opt, draws.noise_multi, True)
         total = multi_loss if freeze_tp else multi_loss + mono_loss
         metrics = {
             "loss": total,
@@ -293,6 +295,10 @@ def make_train_step(model, opt, optimizer, scheduler=None):
 
     def train_step(state: TrainState, batch,
                    draws: Union[StepDraws, Sequence[StepDraws], None] = None):
+        with span("train.step", state.step):
+            return _step(state, batch, draws)
+
+    def _step(state, batch, draws):
         micro = split_microbatches(batch_to_device(batch, state.device), n)
         if draws is None:
             B = micro[0][("color", 0, 0)].shape[0] * dist.world()
@@ -309,34 +315,38 @@ def make_train_step(model, opt, optimizer, scheduler=None):
         for inputs, dr in zip(micro, draws):
             total, metrics, mono_depth = loss_fn(
                 inputs, state.min_depth_bin, state.max_depth_bin, dr)
-            total.backward()
+            with span("train.backward"):
+                total.backward()
             d = mono_depth.detach()
             per.append({"dmin": d.amin(dim=(1, 2, 3)).mean(),
                         "dmax": d.amax(dim=(1, 2, 3)).mean(),
                         **{k: v.detach() for k, v in metrics.items()}})
         metrics = per[0]
-        dist.average_gradients(model.parameters())
-        if n > 1:
-            with torch.no_grad():
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(n)
-            metrics = {k: torch.stack([m[k] for m in per]).mean()
-                       for k in metrics}
-        if dist.enabled():
-            names = list(metrics)
-            mean = dist.all_reduce_mean(torch.stack([metrics[k] for k in names]))
-            metrics = dict(zip(names, mean.unbind()))
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("train.allreduce"):
+            dist.average_gradients(model.parameters())
+            if n > 1:
+                with torch.no_grad():
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(n)
+                metrics = {k: torch.stack([m[k] for m in per]).mean()
+                           for k in metrics}
+            if dist.enabled():
+                names = list(metrics)
+                mean = dist.all_reduce_mean(torch.stack([metrics[k] for k in names]))
+                metrics = dict(zip(names, mean.unbind()))
+        with span("train.optimizer"):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
 
         dmin, dmax = metrics.pop("dmin"), metrics.pop("dmax")
         new_min, new_max = state.min_depth_bin, state.max_depth_bin
         if update_bins:
-            dmin = torch.clamp(dmin * 0.9, min=opt.min_depth)
-            new_min = state.min_depth_bin * 0.99 + dmin * 0.01
-            new_max = state.max_depth_bin * 0.99 + dmax * 1.1 * 0.01
+            with span("train.bins"):
+                dmin = torch.clamp(dmin * 0.9, min=opt.min_depth)
+                new_min = state.min_depth_bin * 0.99 + dmin * 0.01
+                new_max = state.max_depth_bin * 0.99 + dmax * 1.1 * 0.01
         metrics["depth_bins/min"] = new_min
         metrics["depth_bins/max"] = new_max
         return TrainState(step=state.step + 1, min_depth_bin=new_min,

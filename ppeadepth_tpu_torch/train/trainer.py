@@ -25,7 +25,9 @@ Differences from the JAX Trainer: one process a device instead of one
 mesh; the JAX package's automatic `--remat_loss` guard for a 16 GB TPU
 has no counterpart; a plain resume (no `--ktf`) takes the step count from the
 checkpoint's track.json, where the JAX Trainer keeps its fresh step.
-Logging is stdout and `metrics.jsonl` under the JAX keys.
+Logging is stdout and `metrics.jsonl` under the JAX keys; the stdout line
+every `LOG_EVERY` steps gives images a second and the share of that wall
+time spent blocked on the next batch (`loader_wait_s`).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..eval import evaluator, metrics as M
 from ..models import RepDepth, init_weights
 from ..models.repdepth import cudnn_without_tf32
 from ..parallel import dist
+from ..utils.trace import span
 from . import freeze, schedule
 from .step import create_train_state, make_train_step
 
@@ -162,6 +165,8 @@ class Trainer:
             self.load_model(opt.load_weights_folder)
         self.step_fn = make_train_step(self.model, opt, self.optimizer,
                                        self.scheduler)
+        # seconds blocked on the next training batch, over the Trainer's life
+        self.loader_wait_s = 0.0
         self._metrics_file = None
         if dist.is_main():
             self._metrics_file = open(
@@ -221,11 +226,11 @@ class Trainer:
         if self.train_loader is None:
             raise ValueError("--data_path required to train")
         step = self.state.step
-        t_last = time.perf_counter()
+        t_last, wait_last = time.perf_counter(), self.loader_wait_s
         start_epoch = step // max(self.steps_per_epoch, 1)
         for epoch in range(start_epoch, opt.num_epochs):
             self.train_loader.set_epoch(epoch)
-            for batch in self._batches():
+            for batch in self._waited(self._batches()):
                 self.state, metrics = self.step_fn(self.state, batch)
                 step = self.state.step
                 if step == 250 and opt.validate_every > 0:
@@ -235,14 +240,29 @@ class Trainer:
                     metrics = {k: v.item() for k, v in metrics.items()}
                     dt = time.perf_counter() - t_last
                     ips = LOG_EVERY * opt.batch_size / dt
-                    t_last = time.perf_counter()
+                    wait = 100.0 * (self.loader_wait_s - wait_last) / dt
+                    t_last, wait_last = time.perf_counter(), self.loader_wait_s
                     _print(f"epoch {epoch} step {step} "
-                           f"loss {metrics['loss']:.4f} {ips:.1f} img/s")
+                           f"loss {metrics['loss']:.4f} {ips:.1f} img/s, "
+                           f"loader wait {wait:.1f} %")
                     self.log_metrics(step, metrics)
                 if opt.validate_every > 0 and step % opt.validate_every == 0:
                     self.validate(step)
                     self.save_model(f"s{step}")
         self.save_model("final")
+
+    def _waited(self, batches):
+        """`batches`, each wait for the next one a `train.loader_wait` span
+        whose seconds add to `loader_wait_s`."""
+        end = object()
+        while True:
+            t = time.perf_counter()
+            with span("train.loader_wait"):
+                batch = next(batches, end)
+            self.loader_wait_s += time.perf_counter() - t
+            if batch is end:
+                return
+            yield batch
 
     def _batches(self):
         """The epoch's training batches on the device: the fast pipeline's
