@@ -27,7 +27,10 @@ from bisect import bisect_right
 from .trace import SPAN
 
 PREFIX = "ppea:"
-# the innermost range's name prefix -> the part of the idle split
+# the innermost range's name prefix -> the part of the idle split; the
+# session's part holds `serve.request` where it is innermost too: the
+# session's own lines between its upload, the model's phases and its
+# download
 OWNERS = (("model.", "dispatch"), ("serve.", "session"))
 CALLER = "caller"  # no range of the program open
 
@@ -67,7 +70,9 @@ def owner(name: str) -> str:
 
 def idle_gaps(summary):
     """(start_ns, end_ns) of the gaps between device segments that begin
-    inside a harness span, as `Summary.gaps` takes them."""
+    inside a harness span. The same selection as `trace.Summary.gaps`
+    (which labels each gap instead of returning it): keep the two in step,
+    as `test_bench_spans.py` checks by their totals."""
     spans = [(s, e) for n, s, e in summary.host if n.startswith(SPAN)]
     segs = summary.segments
     return [(a, b) for (_, a), (b, _) in zip(segs, segs[1:])
@@ -76,7 +81,8 @@ def idle_gaps(summary):
 
 def idle_split(summary):
     """{part: idle seconds} over `idle_gaps`: "dispatch" where the
-    innermost open range is a `model.*` one, "session" a `serve.*` one,
+    innermost open range is a `model.*` one, "session" a `serve.*` one
+    (`serve.request` included),
     "caller" where none is open, any other range under its own name; None
     where the trace holds no range of the program."""
     host = ranges(summary)

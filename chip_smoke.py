@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # the checks below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
-                                       # each path's device time
+                                       # each path's device time and of
+                                       # its `ppea:` phase spans
     python3 chip_smoke.py --kernel A   # build, then kernel A's three checks
                                        # (teacher, #2, #3) alone and its
                                        # launches profiled beside cuDNN's at
@@ -3216,12 +3217,46 @@ def _category(name):
     return "other elementwise"
 
 
+def _union_us(spans, lo=float("-inf"), hi=float("inf")):
+    """Length of the union of sorted (start, end) intervals inside [lo, hi]."""
+    total, end = 0.0, lo
+    for s, e in spans:
+        if s >= hi:
+            break
+        e = min(e, hi)
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def _phase_us(host, device, kernels):
+    """(host, device, busy) microseconds of one phase span: its host ranges
+    summed; the union of its device-side copies (the profiler may keep
+    several for one range, one a stream, and they overlap); the union of
+    the sorted `kernels` intervals inside that union."""
+    merged = []
+    for s, e in sorted(device):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return (sum(e - s for s, e in host), sum(e - s for s, e in merged),
+            sum(_union_us(kernels, s, e) for s, e in merged))
+
+
 def profile_serving(tag, fn, requests):
     """torch.profiler over 5 calls (batches or training steps): device time
     by kernel category and of the 5 costliest kernels, device busy (union
-    of kernel intervals) and the host wall."""
+    of kernel intervals) and the host wall; then each of the port's phase
+    spans (`ppea:` ranges, `ppeadepth_tpu_torch.utils.trace`): its host
+    time and, over the device-side copies the profiler keeps of it on a
+    card (user annotations, never kernels), its device time and the busy
+    time of the kernels inside (`_phase_us`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ppeadepth_tpu_torch.utils.trace import PREFIX
 
     fn(*requests[0])
     torch.cuda.synchronize()
@@ -3231,11 +3266,16 @@ def profile_serving(tag, fn, requests):
             fn(*requests[i % len(requests)])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 5
-    spans, cats, names = [], {}, {}
+    spans, cats, names, phases = [], {}, {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        on_device = e.device_type == torch.autograd.DeviceType.CUDA
         r = e.time_range
+        if e.name.startswith(PREFIX):
+            side = phases.setdefault(e.name, ([], []))[on_device]
+            side.append((r.start, r.end))
+            continue
+        if not on_device or getattr(e, "is_user_annotation", False):
+            continue
         spans.append((r.start, r.end))
         for key, acc in ((_category(e.name), cats), (e.name, names)):
             c = acc.setdefault(key, [0.0, 0])
@@ -3243,12 +3283,8 @@ def profile_serving(tag, fn, requests):
             c[1] += 1
     if not spans:
         raise AssertionError(f"profile {tag}: the trace holds no device time")
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(spans):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    busy = busy / 1e3 / 5
+    spans.sort()
+    busy = _union_us(spans) / 1e3 / 5
     total = sum(v[0] for v in cats.values())
     print(f"profile {tag}: per batch, device busy {busy:.3f} ms, host wall "
           f"{wall:.3f} ms under the profiler, idle share {1 - busy / wall:.4f}")
@@ -3258,6 +3294,13 @@ def profile_serving(tag, fn, requests):
     for name, (ms, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:5]:
         print(f"profile {tag}: top kernel {ms:.3f} ms/batch, {n / 5:g}/batch: "
               f"{name[:120]}")
+    for name, (host, device) in sorted(phases.items()):
+        host_ms, dev_ms, dev_busy = (
+            t / 1e3 / 5 for t in _phase_us(host, device, spans))
+        print(f"profile {tag}: phase {name}: {len(host) / 5:g}/batch, host "
+              f"{host_ms:.3f} ms/batch; on the device {len(device) / 5:g} "
+              f"copies/batch over {dev_ms:.3f} ms/batch, kernels busy "
+              f"{dev_busy:.3f} ms/batch")
 
 
 def main():

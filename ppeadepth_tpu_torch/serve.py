@@ -18,8 +18,7 @@ CPU they run their plain versions.
 Images are float in [0, 1] or uint8, NHWC. Depths are metric after
 disp_to_depth with the config's min/max depth.
 
-Under a torch profiler each public call is a numbered `serve.request`
-span holding its `serve.upload` and `serve.download` spans
+Under a torch profiler each public call is a `serve.request` span holding its `serve.upload` and `serve.download` spans
 (`utils.trace`), and the model's phases inside them.
 """
 
@@ -98,12 +97,6 @@ class InferenceSession:
             model.fold_ffn(self.dtype)
         cast_compute(model, self.dtype)
         self.model = model
-        self.requests = 0
-
-    def _request(self):
-        """The `serve.request` span of the next public call, numbered."""
-        self.requests += 1
-        return span("serve.request", self.requests)
 
     def _images(self, images):
         """NHWC numpy (float in [0, 1] or uint8) -> f32 [B, 3, H, W] on the
@@ -121,7 +114,7 @@ class InferenceSession:
 
     def predict_depth(self, images) -> np.ndarray:
         """images: [B, H, W, 3] -> metric depth [B, H, W] (float32 numpy)."""
-        with self._request():
+        with span("serve.request"):
             with span("serve.upload"):
                 x = self._images(images)
             with torch.inference_mode():
@@ -130,7 +123,7 @@ class InferenceSession:
     def predict_pose(self, frame_a, frame_b, invert: bool = False) -> np.ndarray:
         """Relative pose from a temporally ordered pair [B, H, W, 3] each ->
         [B, 4, 4] (float32 numpy)."""
-        with self._request():
+        with span("serve.request"):
             with span("serve.upload"):
                 a, b = self._images(frame_a), self._images(frame_b)
             with torch.inference_mode():
@@ -143,7 +136,7 @@ class InferenceSession:
         each, intrinsics K, invK [B, 4, 4] at the matching (1/4) scale ->
         metric depth [B, H, W] (float32 numpy). The pose lookup->current
         comes from the pose net, inverted, as in the JAX session."""
-        with self._request():
+        with span("serve.request"):
             with span("serve.upload"):
                 img, lk = self._images(images), self._images(lookup)
                 K, invK = (torch.as_tensor(np.asarray(m), dtype=torch.float32)

@@ -295,7 +295,7 @@ def make_train_step(model, opt, optimizer, scheduler=None):
 
     def train_step(state: TrainState, batch,
                    draws: Union[StepDraws, Sequence[StepDraws], None] = None):
-        with span("train.step", state.step):
+        with span("train.step"):
             return _step(state, batch, draws)
 
     def _step(state, batch, draws):

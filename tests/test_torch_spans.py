@@ -1,9 +1,9 @@
 """The port's phase spans (`ppeadepth_tpu_torch.utils.trace.span`) on the
 CPU at the tiny teacher's configuration: under a torch profiler the
 session's requests and a training step give their `ppea:` ranges, nested
-as the layers nest, numbered by request and step; with no profiler
-active no span calls into the profiler; the Trainer counts the time it
-waits on its loader and prints its share."""
+as the layers nest; with no profiler active no span calls into the
+profiler; the Trainer counts the time it waits on its loader and prints
+its share."""
 
 import re
 import time
@@ -90,23 +90,7 @@ def _inside(inner, outer):
     return outer[1] <= inner[1] and inner[2] <= outer[2]
 
 
-@pytest.fixture
-def recorded(monkeypatch):
-    """(name, args) of every range a span opens, the profiler's own
-    `record_function` still doing the work."""
-    calls = []
-    real = trace.record_function
-
-    def record(name, args=None):
-        calls.append((name, args))
-        return real(name, args)
-
-    monkeypatch.setattr(trace, "record_function", record)
-    return calls
-
-
-def test_serve_spans_nest(session, recorded):
-    n = session.requests
+def test_serve_spans_nest(session):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _serve(session, np.random.RandomState(0))
     got = _ranges(prof)
@@ -119,11 +103,9 @@ def test_serve_spans_nest(session, recorded):
     (cv,) = [r for r in student if r[0] == "model.cost_volume"]
     (enc,) = [r for r in student if r[0] == "model.student_encoder"]
     assert _inside(cv, enc)
-    assert [a for name, a in recorded if name == "ppea:serve.request"] == [
-        str(n + 1), str(n + 2)]
 
 
-def test_train_step_spans_nest(step, recorded):
+def test_train_step_spans_nest(step):
     train_step, state, opt = step
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         new_state, _ = train_step(state, _train_batch(np.random.RandomState(1), opt))
@@ -134,7 +116,6 @@ def test_train_step_spans_nest(step, recorded):
     cv = [r for r in got if r[0] == "model.cost_volume"]
     enc = [r for r in got if r[0] == "model.student_encoder"]
     assert len(cv) == len(enc) == 1 and _inside(cv[0], enc[0])
-    assert ("ppea:train.step", str(state.step)) in recorded
     assert new_state.step == state.step + 1
 
 
@@ -143,7 +124,7 @@ def test_no_profiler_no_record_function(session, step, monkeypatch):
         raise AssertionError("record_function called with no profiler active")
 
     monkeypatch.setattr(trace, "record_function", refuse)
-    assert trace.span("serve.request", 1) is trace.span("model.pose")
+    assert trace.span("serve.request") is trace.span("model.pose")
     _serve(session, np.random.RandomState(2))
     train_step, state, opt = step
     train_step(state, _train_batch(np.random.RandomState(3), opt))
@@ -183,3 +164,17 @@ def test_trainer_counts_loader_wait(tmp_path, monkeypatch, capsys):
     names = [r[0] for r in _ranges(prof)]
     assert names.count("train.loader_wait") == 3  # two batches and the end
     assert names.count("train.step") == 2
+
+
+def test_chip_smoke_phase_times_merge_device_copies():
+    """`chip_smoke.py --profile`'s phase line: host ranges summed, a
+    range's overlapping device-side copies (one a stream) counted once,
+    and only the kernel time inside them taken as busy."""
+    import chip_smoke
+
+    kernels = [(0, 10), (12, 20), (18, 30), (40, 50)]
+    host = [(0, 25), (35, 45)]
+    device = [(5, 22), (15, 28), (42, 60)]
+    assert chip_smoke._union_us(kernels) == 10 + 18 + 10
+    assert chip_smoke._phase_us(host, device, kernels) == (
+        25 + 10, (28 - 5) + (60 - 42), (10 - 5) + (28 - 12) + (50 - 42))
