@@ -287,13 +287,40 @@ def _dw_macs(B, H, W, C, k):
     return B * C * taps(H) * taps(W)
 
 
+def _lk_tensor_bound_ms(B, H, W, C, k):
+    """Kernel A's bound as the benchmark's roofline counts it
+    (`benchmark/roofline/lk_dwconv.py`): the clipped taps' operations at
+    the bf16 tensor rate, or the bf16 input, output and weights once at
+    HBM rate, the larger; with what bounds it."""
+    return _bound_ms(2 * (2 * B * H * W * C + C * k * k),
+                     2 * _dw_macs(B, H, W, C, k), BF16_FLOP_PER_S)
+
+
+def _lk_bound_ms(B, H, W, C, k, dtype):
+    """Kernel A's bound for a launch at the rate of the instance
+    `lk_plan` takes: the bf16 tensor rate for the banded one, the f32 FMA
+    rate for the CUDA-core ones; (ms, what bounds it, the rate's name)."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import BandPlan, lk_plan
+
+    if isinstance(lk_plan(B, H, W, C, k, dtype), BandPlan):
+        return (*_lk_tensor_bound_ms(B, H, W, C, k), "bf16 tensor")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    return (*_bound_ms(esize * (2 * B * H * W * C + C * k * k),
+                       2 * _dw_macs(B, H, W, C, k), F32_FLOP_PER_S), "f32 FMA")
+
+
 def check_lk_dwconv(dev, rng):
     """Kernel A against its plain version (one cuDNN call, which is also
     the library yardstick) at the four stage shapes. Times and bounds are
-    per teacher forward (the sum over its 24 calls)."""
+    per teacher forward (the sum over its 24 calls). At k >= 13 (the
+    banded instance) also the CUDA-core instance's time and the bound at
+    the bf16 tensor rate beside the FMA one."""
     import torch
 
-    from ppeadepth_tpu_torch.kernels.lk_conv import depthwise_plain, lk_depthwise
+    from ppeadepth_tpu_torch.kernels.lk_conv import (
+        BandPlan, _launch, depthwise_plain, lk_depthwise, lk_fma_plan, lk_plan)
 
     worst, ms, plain_ms, bound = 0.0, 0.0, 0.0, _Bound()
     for C, H, W, k, blocks in _stage_shapes():
@@ -322,6 +349,15 @@ def check_lk_dwconv(dev, rng):
               f"({macs / kk / 1e9:.2f} T multiply-adds/s of {macs / 1e9:.2f} G), "
               f"plain (cuDNN bf16) {p:.4f} ms/call, bound {bnd:.4f} ms "
               f"({by}), x{blocks} per forward")
+        if isinstance(lk_plan(BATCH, H, W, C, k, torch.bfloat16), BandPlan):
+            fma = lk_fma_plan(BATCH, H, W, C, k, torch.bfloat16)
+            _, f = _time_pair(lambda: depthwise_plain(x, w, b),
+                              lambda: _launch(x, w, b, "lk_dwconv", plan=fma), 20)
+            tb, tby = _lk_tensor_bound_ms(BATCH, H, W, C, k)
+            print(f"kernel A  [{BATCH},{H},{W},{C}] k={k}: banded {kk:.4f} ms/call, "
+                  f"CUDA-core instance {f:.4f} ms/call (x{f / kk:.2f}), cuDNN "
+                  f"{p:.4f} ms/call; bounds: FMA {bnd:.4f} ms, tensor rate "
+                  f"{tb:.4f} ms ({tby}; {100 * tb / kk:.2f} % of its roofline)")
         ms += kk * blocks
         plain_ms += p * blocks
         bound.add(bnd, by, blocks)
@@ -508,16 +544,68 @@ def profile_lk_launches(dev, rng):
                 host.append((time.perf_counter() - t0) / 50 * 1e6)
                 torch.cuda.synchronize()
             macs = _dw_macs(B, H, W, C, k)
-            bnd, by = _bound_ms(x.element_size() * (2 * B * H * W * C + C * k * k),
-                                2 * macs, F32_FLOP_PER_S)
+            bnd, by, rate = _lk_bound_ms(B, H, W, C, k, dtype)
             print(f"kernel A launch [{B},{H},{W},{C}] k={k} {str(dtype)[6:]}: "
                   f"{ours:.2f} us (forward and dx), cuDNN {lib:.2f} us, "
                   f"CUDA events {ev_ours * 1e3:.2f} / {ev_lib * 1e3:.2f} us, "
-                  f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}); host "
+                  f"x{lib / ours:.2f}; bound {bnd * 1e3:.2f} us ({by}, {rate}); host "
                   f"{host[0]:.1f} us a call, cuDNN's {host[1]:.1f} us; "
                   f"{macs / ours / 1e6:.2f} T multiply-adds/s "
-                  f"({100 * 2 * macs / ours / 1e6 / (F32_FLOP_PER_S / 1e12):.1f} % "
-                  f"of f32 FMA); plan {lk_plan(B, H, W, C, k, dtype)}")
+                  f"({100 * bnd * 1e3 / ours:.1f} % of the bound); plan "
+                  f"{lk_plan(B, H, W, C, k, dtype)}")
+
+
+def profile_lk_banded(dev, rng, sweep=False):
+    """`--kernel A` only: per encoder stage at the serving batch (B=32) at
+    640x192 and 512x192, the device time (`_device_us`) of one launch of
+    the banded instance, of the CUDA-core instance and of cuDNN's depthwise
+    `F.conv2d`, beside the FMA bound and the benchmark's tensor-rate bound;
+    the banded forward against the plain version; with `sweep`, the device
+    time of the best-ranked plans of `band_plans`."""
+    import torch
+
+    from ppeadepth_tpu_torch.kernels.lk_conv import (
+        _launch, band_plans, depthwise_plain, lk_fma_plan, lk_plan)
+
+    B = 32
+    for opt in (SHIPPED_B, Config(adapter=True, rep_size="b", height=192, width=512)):
+        for C, H, W, k, blocks in _stage_shapes(opt):
+            x = torch.from_numpy(rng.randn(B, H, W, C).astype("float32")).to(
+                dev).bfloat16().permute(0, 3, 1, 2)
+            w = torch.from_numpy((rng.randn(C, 1, k, k) / k).astype("float32")).to(
+                dev).bfloat16()
+            b = torch.from_numpy((rng.randn(C) * 0.1).astype("float32")).to(
+                dev).bfloat16()
+            plan = lk_plan(B, H, W, C, k, torch.bfloat16)
+            fma = lk_fma_plan(B, H, W, C, k, torch.bfloat16)
+            y = _launch(x, w, b, "lk_dwconv", plan=plan)
+            ref = depthwise_plain(x.float(), w.float(), b.float())
+            err = (y.float() - ref).abs().max().item() / ref.abs().max().item()
+            band = _device_us(lambda: _launch(x, w, b, "lk_dwconv", plan=plan))
+            core = _device_us(lambda: _launch(x, w, b, "lk_dwconv", plan=fma))
+            lib = _device_us(lambda: depthwise_plain(x, w, b))
+            macs = _dw_macs(B, H, W, C, k)
+            fb, _ = _bound_ms(2 * (2 * B * H * W * C + C * k * k), 2 * macs,
+                              F32_FLOP_PER_S)
+            tb, tby = _lk_tensor_bound_ms(B, H, W, C, k)
+            print(f"kernel A stage [{B},{H},{W},{C}] k={k} x{blocks}: banded "
+                  f"{band:.2f} us ({2 * macs / band / 1e6:.1f} TFLOP/s, "
+                  f"{100 * tb * 1e3 / band:.2f} % of the roofline), CUDA-core "
+                  f"{core:.2f} us (x{core / band:.2f}), cuDNN {lib:.2f} us; "
+                  f"bounds FMA {fb * 1e3:.2f} us, tensor rate {tb * 1e3:.2f} us "
+                  f"({tby}); max|d|/max|ref| {err:.2e}; plan ni={plan.ni} "
+                  f"th={plan.th} nt={plan.nt} segs={plan.segs} warps={plan.warps} "
+                  f"smem={plan.smem} blocks/SM={plan.blocks_per_sm}")
+            if sweep:
+                plans = list(band_plans(B, H, W, C, k))
+                picked = [p for i, p in enumerate(plans)
+                          if all((p.ni, p.nt, p.warps, p.th) != (q.ni, q.nt, q.warps, q.th)
+                                 for q in plans[:i])][:20]
+                us = [_device_us(lambda p=p: _launch(x, w, b, "lk_dwconv", plan=p))
+                      for p in picked]
+                print(f"kernel A banded sweep [{B},{H},{W},{C}] k={k}: " + " ".join(
+                    f"ni{p.ni}/th{p.th}/nt{p.nt}/w{p.warps}/bps{p.blocks_per_sm}"
+                    f":{t:.2f}" for p, t in zip(picked, us)))
 
 
 def _clocks(tag):
@@ -1033,14 +1121,11 @@ def check_lk_train(dev, rng, opt=TRAIN_B, batch=TRAIN_BATCH):
                 lambda: torch.nn.grad.conv2d_input(x.shape, w, g, padding=k // 2,
                                                    groups=C),
                 lambda: _input_grad(g, w), 10)
-            macs = _dw_macs(batch, H, W, C, k)
-            esize = x.element_size()
-            bnd, by = _bound_ms(esize * (2 * batch * H * W * C + C * k * k),
-                                2 * macs, F32_FLOP_PER_S)
+            bnd, by, rate = _lk_bound_ms(batch, H, W, C, k, dtype)
             print(f"{tag}: forward {k_f:.4f} ms (plain/cuDNN {p_f:.4f}), dx "
                   f"{k_d:.4f} ms (plain {p_d:.4f}, conv2d_input {lib_d:.4f}), "
-                  f"bound {bnd:.4f} ms ({by}) each; x{n_fwd} forward, x{n_dx} dx "
-                  f"per step")
+                  f"bound {bnd:.4f} ms ({by}, {rate}) each; x{n_fwd} forward, "
+                  f"x{n_dx} dx per step")
             if dtype == torch.bfloat16:
                 step["ms"] += k_f * n_fwd + k_d * n_dx
                 step["plain_ms"] += p_f * n_fwd + p_d * n_dx
@@ -1384,14 +1469,17 @@ def train_parity(sd, dev, opt=TRAIN_B, tag="parity", batch=PARITY_BATCH):
 def _expected_launches(opt):
     """Launches of each kernel in one training step of the configuration,
     per microbatch (--grad_accum N: N times): kernel D once per branch
-    forward and backward; kernel A forward and dx as `_train_lk_calls`;
-    the plane sweep once per lookup frame, or never under --dyn_cv (the
-    DynamicDepth volume takes its place)."""
+    forward and backward; kernel A forward and dx as `_train_lk_calls`,
+    of which in bf16 every large kernel's (k >= 13) on the banded instance
+    and no small kernel's; the plane sweep once per lookup frame, or never
+    under --dyn_cv (the DynamicDepth volume takes its place)."""
     calls = _train_lk_calls(opt)
     n = opt.grad_accum
+    bf16 = opt.compute_dtype == "bfloat16"
     return {"warp_fwd": 2 * n, "warp_bwd": 2 * n, "ffn_fused": 0,
             "lk_dwconv": n * sum(c[4] for c in calls),
             "lk_dwconv_dx": n * sum(c[5] for c in calls),
+            "lk_dwconv_banded": n * sum(c[4] + c[5] for c in calls if bf16 and c[3] >= 13),
             "plane_sweep": 0 if opt.dyn_cv else n * (len(opt.matching_ids) - 1)}
 
 
@@ -3352,6 +3440,8 @@ def main():
                "kernel #2": check_lk_train(dev, rng),
                "kernel #3": check_lk_pallas(dev, rng)}
         _clocks("after the checks")
+        profile_lk_banded(dev, rng, sweep="--sweep" in args)
+        _clocks("after the banded stages")
         profile_lk_launches(dev, rng)
         _clocks("after the launch profile")
         if "--sweep" in args:

@@ -14,27 +14,57 @@
 //
 // SAME zero padding, stride 1, any odd k <= 31; NHWC memory (an NCHW tensor
 // in torch.channels_last). bf16 in and out with bf16 weights, or f32
-// throughout; both accumulate in f32. `flip` reads w[c, k-1-dy, k-1-dx]
+// throughout; all accumulate in f32. `flip` reads w[c, k-1-dy, k-1-dx]
 // in place, so the input gradient needs no flipped copy of the kernel.
 //
-// One template, two families of instances; `lk_plan` (kernels/lk_conv.py)
-// picks the instance, the tile and the grid, and the host launches with its
-// numbers. Common to both:
-//   * k is a template parameter at the configurations' sizes (3, 5, 7, 13,
-//     27, 29, 31); one instance per family takes any other odd k <= 31 at
-//     run time (same tiling, weights read from shared memory per tap);
-//   * a thread owns two neighbouring channels (bf16x2 / float2 shared
-//     loads) of TWT = 10 neighbouring outputs of one row; 10 divides every
-//     stage width (320, 160, 80, 40, 20), so no thread column idles. Per
-//     kernel row it keeps that row's k weight pairs in registers and
-//     streams the TWT + k - 1 input pairs past them: k * TWT * 2 FMAs per
-//     2k + TWT - 1 shared loads, fully unrolled, no predicate. Kernel rows
-//     are clipped to those landing inside the image;
-//   * shared memory holds the block's k*k weights, read as 16-byte vectors
-//     of the group's contiguous [channel][k*k] run and written transposed
-//     to [tap][channel] (flipped in place for dx), and the halo rows that
-//     exist, min(TH + k - 1, H): rows outside the image are neither
-//     stored nor multiplied.
+// Three families of instances; `lk_plan` (kernels/lk_conv.py) picks the
+// family from the dtype and k alone, then the tile and the grid from the
+// shape, and the host launches with its numbers.
+//
+// Banded instances, bf16 and k >= 13 (every merged serving conv, and
+// training's large-kernel forward and input gradient): on the tensor
+// cores. A depthwise conv has no reduction over channels, but each kernel
+// row is one over columns: for channel c and kernel row dy, the outputs of
+// a 16-column tile are a banded (Toeplitz) matrix of the k taps times a
+// 16-column chunk of the input row dy - k/2 above, 48 input columns (32 at
+// k <= 17) for 16 outputs, so 56-65 % of the products are taps at k = 27-31
+// (40 % at k = 13). Each is an m16n8k16 `mma.sync` with the band as A
+// (registers), eight input rows as B (ldmatrix, one row address a lane, so
+// the kernel row's shift is an address) and f32 accumulators, summed over
+// the kernel rows that land inside the image; bias in the f32 epilogue,
+// one bf16 store. Bound: in its products each step (a channel, a kernel
+// row) of a warp issues NT x J `mma.sync` and reads 2J+1 band words and
+// NT+J-1 input chunks (2 wavefronts each) from shared memory, so the
+// tensor cores' `mma.sync` rate and shared memory's bandwidth limit it
+// about evenly; before them each block stages its input, 8 bytes of every
+// 32-byte pixel sector of NHWC memory, bound by the loads' latency and
+// hidden only in part by the other resident blocks. The design keeps the
+// products fed: the band is built once per block into shared memory as a
+// table of tap pairs (each lane's fragment is 2J+1 aligned 32-bit loads,
+// no per-step arithmetic), a warp's task spans up to 5 tiles so each chunk
+// feeds J products and each band NT x J, a step's products accumulate
+// into different tiles back to back, and 8 warps a block, 2-4 blocks an
+// SM, cover the latencies; the staging keeps 16 loads in flight a thread.
+// The block stages 4 channels of NI images, transposed into per-channel
+// planes with zero columns left and right and a zero row for kernel rows
+// off the image; the plan takes the image rows of a product from one image
+// (NI=1, 8 rows: the tall stages) or from 2-8 images (the 6-24-row stages,
+// where then every kernel row of a product lands in the image).
+//
+// CUDA-core instances: k is a template parameter at the configurations'
+// sizes (3, 5, 7, 13, 27, 29, 31); one instance per family takes any other
+// odd k <= 31 at run time (same tiling, weights read from shared memory per
+// tap). A thread owns two neighbouring channels (bf16x2 / float2 shared
+// loads) of TWT = 10 neighbouring outputs of one row; 10 divides every
+// stage width (320, 160, 80, 40, 20), so no thread column idles. Per
+// kernel row it keeps that row's k weight pairs in registers and streams
+// the TWT + k - 1 input pairs past them: k * TWT * 2 FMAs per 2k + TWT - 1
+// shared loads, fully unrolled, no predicate. Kernel rows are clipped to
+// those landing inside the image. Shared memory holds the block's k*k
+// weights, read as 16-byte vectors of the group's contiguous [channel][k*k]
+// run and written transposed to [tap][channel] (flipped in place for dx),
+// and the halo rows that exist, min(TH + k - 1, H): rows outside the image
+// are neither stored nor multiplied.
 //
 // Wide instances, k <= 11 (the stem's 3x3, every block's 5x5): bound by
 // bytes (9-49 multiply-adds per 2 or 4 bytes in and out). A block takes 128
@@ -46,9 +76,10 @@
 // buffers while it multiplies the current one, so each SM streams without
 // pause.
 //
-// Narrow instances, k >= 13 (the large kernels): bound by CUDA-core FMAs
-// (each input value feeds up to k*k = 961 outputs; the halo's load is a
-// few per cent). A block takes 8 channels, kept in shared memory as f32
+// Narrow instances, f32 and k >= 13 (the f32 eval's large kernels; the
+// bf16 ones remain as the banded family's yardstick): bound by CUDA-core
+// FMAs (each input value feeds up to k*k = 961 outputs; the halo's load is
+// a few per cent). A block takes 8 channels, kept in shared memory as f32
 // (bf16 is widened once as it is staged, not once per tap), so the k*k
 // weights (31 KB at k=31) and a halo of up to ~80 KB fit twice on an SM:
 // two resident blocks (__launch_bounds__(256, 2), <= 128 registers; k=31
@@ -59,14 +90,12 @@
 // 32-byte pixels of four rows that a quarter warp reads fall in four bank
 // quarters.
 //
-// The tensor cores stay idle: a depthwise conv has no reduction over
-// channels to feed them (a Toeplitz form of the bf16 path, what the TPU
-// did on its MXU, is a different algorithm against a different bound).
-//
 // Where it runs: all four encoder stages. The JAX package gated its banded
 // kernel to stages 0-1 (banded_conv.py `stage_backends`) because of the
 // TPU's 128-lane tile padding at W <= 40; that limit has no Hopper
-// counterpart. Measured times and rates are in PERF.md.
+// counterpart, and the banded instances here build their bands in shared
+// memory from the taps, not from precomputed tables. Measured times and
+// rates are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -396,6 +425,358 @@ int dispatch(const void* x, const void* w, const void* bias, void* y, int B,
 #undef PPEA_LK
 }
 
+// ---------------------------------------------------------------------------
+// The banded instances: bf16, k >= 13, on the tensor cores.
+//
+// Per channel and kernel row dy, sixteen output columns X0..X0+15 of eight
+// image rows are one m16n8k16 product per 16-column chunk of input:
+//   out^T[X0 + m, n] += sum_kk T_j[m, kk] * in[n, X0 + 16 j + kk - OFF]
+//   T_j[m, kk] = w[dy, 16 j + kk - m + D0],  D0 = k/2 - OFF (0 off the band)
+// A = the band T_j in registers, B = the input chunk by ldmatrix from a
+// per-channel plane (one row address a lane, so the dy shift is an address),
+// D = f32 accumulators. OFF (8 or 16) zero columns lie left of the image in
+// the plane, so a chunk starts on a 16-byte boundary and J = 2 (k <= 17) or
+// 3 chunks cover the band of 16 outputs.
+//
+// The band's fragments: lane (g = lane/4, q = lane%4) holds T_j at rows g,
+// g+8 and columns 2q, 2q+1, 2q+8, 2q+9, all of them pairs (w[x], w[x+1])
+// at x = d + 8 i, d = 2q - g + D0, i = -1 .. 2J-1. Shared memory holds, per
+// channel and dy, the table PT[e] = (w[x], w[x+1]), x = e + D0 - 15 (zero
+// off the kernel), built by the block from the k taps; the lane reads its
+// 2J+1 words at e = 2q - g + 7 + 8 m, m = 0 .. 2J: one 32-bit load each.
+// A row of the table is `tlen` = 14 + 16 J words and starts `tstride` =
+// k + 15 - D0 words after the previous one: its leading zeros are the
+// previous row's trailing zeros.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0, unsigned& r1,
+                                        unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned& r0, unsigned& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float* d, unsigned a0, unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+constexpr int BAND_CB = 4;  // channels a block: 8 bytes of bf16 a pixel
+
+// 256-thread blocks the launch bounds keep resident: the accumulators
+// (BAND_CB * NT * 4 registers) set it
+template <int NT>
+constexpr int band_min_blocks() {
+  return NT <= 2 ? 4 : (NT <= 3 ? 3 : 2);
+}
+
+// a step's operands: the band words and the input chunks of one channel
+// and kernel row
+template <int NT, int J>
+struct BandStep {
+  static constexpr int NCH = NT + J - 1;
+  unsigned band[2 * J + 1];
+  unsigned bq[NCH][2];
+  __device__ __forceinline__ void load(const unsigned* tp, unsigned a) {
+#pragma unroll
+    for (int m = 0; m <= 2 * J; ++m) band[m] = tp[8 * m];
+#pragma unroll
+    for (int ch = 0; ch < NCH; ch += 2) {
+      if (ch + 1 < NCH) {
+        ldsm_x4(a + 32u * ch, bq[ch][0], bq[ch][1], bq[ch + 1][0], bq[ch + 1][1]);
+      } else {
+        ldsm_x2(a + 32u * ch, bq[ch][0], bq[ch][1]);
+      }
+    }
+  }
+  // the step's NT * J products, tile-minor so that consecutive products
+  // accumulate into different tiles
+  __device__ __forceinline__ void mma(float (&acc)[NT][4]) const {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        mma_bf16(acc[t], band[2 * j + 1], band[2 * j], band[2 * j + 2], band[2 * j + 1],
+                 bq[t + j][0], bq[t + j][1]);
+      }
+    }
+  }
+};
+
+// NT: 16-column tiles a warp's task spans; J: chunks a tile reads. The
+// block takes channel group blockIdx.x of the NI images and TH output rows
+// of row tile blockIdx.y; a warp's task is NR rows of each of the NI images
+// (NI * NR = 8, the product's n) by NT tiles of one column segment, for
+// all BAND_CB channels. Shared memory: per channel a plane of NI images x
+// the halo rows (pitch `pitch`, image stride `img_stride`) and a zero row,
+// `chan_stride` elements a channel; then the band tables, a row per
+// (channel, dy); then the block's k*k taps.
+template <int NT, int J>
+__global__ void __launch_bounds__(256, (band_min_blocks<NT>()))
+lk_dwconv_kernel_banded(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ y, int B, int H, int W, int C,
+                        int k, int flip, int NI, int NR, int TH, int pitch,
+                        int img_stride, int chan_stride, int tlen, int segs,
+                        int tiles_h) {
+  constexpr int CB = BAND_CB;
+  constexpr int SU = 8;  // staging items a thread has in flight
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned* pt = reinterpret_cast<unsigned*>(smem + (size_t)CB * chan_stride * 2);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int half = k / 2;
+  const int off = (half + 7) & ~7;  // zero columns left of the image
+  const int xmin = half - off - 15;  // the band table's first x
+  const int tstride = k - xmin;      // words from one table row to the next
+  const int c0 = blockIdx.x * CB;
+  const int b0 = (blockIdx.y / tiles_h) * NI;
+  const int h0 = (blockIdx.y % tiles_h) * TH;
+  const int r_lo = max(0, h0 - half);
+  const int r_hi = min(H - 1, h0 + TH - 1 + half);
+  const int n_rows = r_hi - r_lo + 1;
+  const int zero_row = NI * img_stride;  // a channel plane's zero row
+  const int cols = (segs * NT + J - 1) * 16;  // plane columns the tasks read
+  // the taps after the tables, on a 16-byte boundary
+  __nv_bfloat16* wsm =
+      reinterpret_cast<__nv_bfloat16*>(pt + (((CB * k - 1) * tstride + tlen + 3) & ~3));
+
+  // the block's taps, [CB][k*k] as they lie in w, into shared memory:
+  // 8-byte vectors where w allows, else elements
+  {
+    const int kk = k * k;
+    const int n = min(CB, C - c0) * kk;
+    const __nv_bfloat16* wg = w + (size_t)c0 * kk;
+    if (reinterpret_cast<size_t>(wg) % 8 == 0) {
+      for (int v = tid; v < n / 4; v += blockDim.x) {
+        reinterpret_cast<uint2*>(wsm)[v] = __ldg(reinterpret_cast<const uint2*>(wg) + v);
+      }
+      for (int i = n / 4 * 4 + tid; i < n; i += blockDim.x) wsm[i] = wg[i];
+    } else {
+      for (int i = tid; i < n; i += blockDim.x) wsm[i] = wg[i];
+    }
+  }
+  // the input: NI images x the tile's halo rows x `cols` plane columns,
+  // two columns an item (two pixels' CB channels in, a word to each plane
+  // out), SU items' loads in flight a thread before their stores; zeros
+  // left and right of the image
+  {
+    const int ni = min(NI, B - b0);  // images of the group that exist
+    const int hc = cols / 2;
+    const int items = ni * n_rows * hc;
+    for (int base = tid; base < items; base += SU * blockDim.x) {
+      uint2 v[SU][2];
+      int dst[SU];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int it = base + u * blockDim.x;
+        const int rr = it / hc;
+        const int s2 = 2 * (it - rr * hc);
+        const int i = rr / n_rows;
+        const int r = rr - i * n_rows;
+        dst[u] = it < items ? i * img_stride + r * pitch + s2 : -1;
+        const __nv_bfloat16* xp =
+            x + (((long long)(b0 + i) * H + r_lo + r) * W + s2 - off) * C + c0;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int xx = s2 - off + h2;
+          v[u][h2] = make_uint2(0u, 0u);
+          if (it < items && xx >= 0 && xx < W) {
+            if (C % CB == 0) {
+              v[u][h2] = __ldg(reinterpret_cast<const uint2*>(xp + (size_t)h2 * C));
+            } else {  // C not a multiple of CB: element loads
+              const unsigned short* xe =
+                  reinterpret_cast<const unsigned short*>(xp + (size_t)h2 * C);
+              unsigned e[CB];
+#pragma unroll
+              for (int c = 0; c < CB; ++c) e[c] = c0 + c < C ? xe[c] : 0u;
+              v[u][h2] = make_uint2(e[0] | e[1] << 16, e[2] | e[3] << 16);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        if (dst[u] < 0) continue;
+        unsigned* d = reinterpret_cast<unsigned*>(xs + dst[u]);
+        d[0] = __byte_perm(v[u][0].x, v[u][1].x, 0x5410);
+        d[chan_stride / 2] = __byte_perm(v[u][0].x, v[u][1].x, 0x7632);
+        d[chan_stride] = __byte_perm(v[u][0].y, v[u][1].y, 0x5410);
+        d[3 * chan_stride / 2] = __byte_perm(v[u][0].y, v[u][1].y, 0x7632);
+      }
+    }
+  }
+  __syncthreads();  // the taps are in shared memory
+  // band tables: a warp per (channel, dy) row, which writes its first
+  // `tstride` words; lane j < k holds tap j of the row (flipped in place
+  // for dx), shuffled to each entry's pair. Then the last row's tail, and
+  // the zero rows.
+  {
+    const int kk = k * k;
+    const unsigned short* wr = reinterpret_cast<const unsigned short*>(wsm);
+    for (int rw = warp; rw < CB * k; rw += nwarps) {
+      const int c = rw / k;
+      const int dy = rw - c * k;
+      const int dyy = flip ? k - 1 - dy : dy;
+      const unsigned v = lane < k && c0 + c < C
+                             ? wr[c * kk + dyy * k + (flip ? k - 1 - lane : lane)] : 0u;
+      for (int e0 = 0; e0 < tstride; e0 += 32) {
+        const int e = e0 + lane;
+        const int xl = e + xmin;
+        const unsigned lo = __shfl_sync(0xffffffffu, v, xl & 31);
+        const unsigned hi = __shfl_sync(0xffffffffu, v, (xl + 1) & 31);
+        if (e < tstride) {
+          pt[rw * tstride + e] = (xl >= 0 && xl < k ? lo : 0u) |
+                                 ((xl + 1 >= 0 && xl + 1 < k ? hi : 0u) << 16);
+        }
+      }
+    }
+    for (int e = CB * k * tstride + tid; e < (CB * k - 1) * tstride + tlen; e += blockDim.x) {
+      pt[e] = 0u;
+    }
+    for (int i = tid; i < CB * (pitch / 2); i += blockDim.x) {
+      const int c = i / (pitch / 2);
+      reinterpret_cast<unsigned*>(xs + c * chan_stride + zero_row)[i - c * (pitch / 2)] = 0u;
+    }
+  }
+  __syncthreads();
+
+  float bv[CB];
+#pragma unroll
+  for (int c = 0; c < CB; ++c) {
+    bv[c] = bias != nullptr && c0 + c < C ? __bfloat162float(bias[c0 + c]) : 0.f;
+  }
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const unsigned* pt_lane = pt + (2 * q - g + 7);
+  const unsigned xs_s = static_cast<unsigned>(__cvta_generic_to_shared(xs));
+  // the lane's ldmatrix row: image row n = lane % 8 of the group; lanes
+  // 8-15 address columns 8-15 of a chunk, lanes 16-31 the next chunk
+  const int n_l = lane & 7;
+  const int col_l = ((lane >> 3) & 1) * 8 + (lane >> 4) * 16;
+  const int y_end = min(H, h0 + TH);
+  const int tasks = TH / NR * segs;
+
+  for (int task = warp; task < tasks; task += nwarps) {
+    const int rg = task / segs;
+    const int seg = task - rg * segs;
+    const int y0 = h0 + rg * NR;
+    const int ylast = min(y0 + NR, y_end) - 1;
+    if (ylast < y0) continue;
+    const int dy_lo = max(0, half - ylast);
+    const int dy_hi = min(k - 1, half + H - 1 - y0);
+    const int img_l = n_l / NR;
+    const int y_l = y0 + n_l - img_l * NR;
+    const bool row_ok = y_l <= ylast && b0 + img_l < B;
+    const int col0 = seg * NT * 16;
+
+    float acc[CB][NT][4];
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][t][e] = 0.f;
+
+    // steps (dy, c): a step's operands, then its products
+    const unsigned c_bytes = 2u * chan_stride;
+    const int c_words = k * tstride;
+    BandStep<NT, J> st;
+    for (int dy = dy_lo; dy <= dy_hi; ++dy) {
+      const int r = y_l + dy - half;
+      const int rowoff = row_ok && r >= 0 && r < H ? img_l * img_stride + (r - r_lo) * pitch
+                                                   : zero_row;
+      const unsigned a_row = xs_s + 2u * (rowoff + col0 + col_l);
+      const unsigned* tp = pt_lane + dy * tstride;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        st.load(tp + c * c_words, a_row + c * c_bytes);
+        st.mma(acc[c]);
+      }
+    }
+
+    // epilogue: D element e of tile t is output column col0 + 16 t + g
+    // (+ 8 for e >= 2) of group row n = 2 q + (e & 1); its CB channels go
+    // out as one store
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ox = col0 + 16 * t + g + 8 * (e >> 1);
+        const int n = 2 * q + (e & 1);
+        const int img = n / NR;
+        const int oy = y0 + n - img * NR;
+        const int b = b0 + img;
+        if (ox >= W || oy > ylast || b >= B) continue;
+        __nv_bfloat16* yp = y + (((size_t)b * H + oy) * W + ox) * C + c0;
+        if (C % CB == 0) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0][t][e] + bv[0], acc[1][t][e] + bv[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2][t][e] + bv[2], acc[3][t][e] + bv[3]);
+          *reinterpret_cast<uint2*>(yp) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                                     *reinterpret_cast<const unsigned*>(&hi));
+        } else {
+#pragma unroll
+          for (int c = 0; c < CB; ++c) {
+            if (c0 + c < C) yp[c] = __float2bfloat16(acc[c][t][e] + bv[c]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int NT, int J>
+int launch_banded(const void* x, const void* w, const void* bias, void* y, const int* a,
+                  void* stream) {
+  // a: as ppea_lk_dwconv_banded_bf16 reads it
+  static int opted_in = 48 * 1024;
+  const int smem = a[16];
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lk_dwconv_kernel_banded<NT, J>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = smem;
+  }
+  const dim3 grid((a[3] + BAND_CB - 1) / BAND_CB, a[17] * a[14]);
+  lk_dwconv_kernel_banded<NT, J><<<grid, 32 * a[15], smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias,
+      (__nv_bfloat16*)y, a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
+      a[10], a[11], a[12], a[13], a[14]);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_banded(const void* x, const void* w, const void* bias, void* y, const int* a,
+                    void* stream) {
+#define PPEA_BAND(NTV, JV) launch_banded<NTV, JV>(x, w, bias, y, a, stream)
+  switch (a[19] * 8 + a[18]) {  // J, NT
+    case 17: return PPEA_BAND(1, 2);
+    case 18: return PPEA_BAND(2, 2);
+    case 19: return PPEA_BAND(3, 2);
+    case 20: return PPEA_BAND(4, 2);
+    case 21: return PPEA_BAND(5, 2);
+    case 25: return PPEA_BAND(1, 3);
+    case 26: return PPEA_BAND(2, 3);
+    case 27: return PPEA_BAND(3, 3);
+    case 28: return PPEA_BAND(4, 3);
+    case 29: return PPEA_BAND(5, 3);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PPEA_BAND
+}
+
 }  // namespace
 
 // x, y: [B, H, W, C] (NHWC memory, 16-byte aligned); w: [C, K, K]; bias:
@@ -420,4 +801,33 @@ extern "C" int ppea_lk_dwconv_f32(const void* x, const void* w,
   return dispatch<float>(x, w, bias, y, a[0], a[1], a[2], a[3], a[4], a[5],
                          a[6], a[7], a[8], a[9], a[10], a[11], a[12], a[13],
                          stream);
+}
+
+// x, y: [B, H, W, C] bf16 (NHWC memory, 16-byte aligned); w: [C, K, K];
+// bias: [C] or null. a (20 ints, lk_conv._args of a BandPlan): B, H, W, C,
+// K, flip, then lk_plan's NI, NR, TH, pitch, image stride, channel stride
+// (elements), table words per (channel, dy), column segments, row tiles,
+// warps, smem (bytes), image groups, NT and J. Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for arguments no
+// instance takes).
+extern "C" int ppea_lk_dwconv_banded_bf16(const void* x, const void* w,
+                                          const void* bias, void* y, const int* a,
+                                          void* stream) {
+  const int B = a[0], H = a[1], W = a[2], C = a[3], k = a[4];
+  const int NI = a[6], NR = a[7], TH = a[8], pitch = a[9], img_stride = a[10];
+  const int chan_stride = a[11], tlen = a[12], segs = a[13], tiles_h = a[14];
+  const int warps = a[15], NT = a[18], J = a[19], CB = BAND_CB;
+  const int half = k / 2, off = (half + 7) & ~7;
+  if (k < 13 || k > KMAX || k % 2 == 0 || B < 1 || H < 1 || W < 1 || C < 1 ||
+      NI * NR != 8 || (NR & (NR - 1)) != 0 || TH < NR ||
+      TH % NR != 0 || J != (half + off + 31) / 16 || tlen != 14 + 16 * J ||
+      pitch % 8 != 0 || pitch < (segs * NT + J - 1) * 16 || img_stride % 8 != 0 ||
+      img_stride < min(TH + k - 1, H) * pitch || chan_stride < NI * img_stride + pitch ||
+      chan_stride % 8 != 0 ||
+      a[16] < CB * chan_stride * 2 + (((CB * k - 1) * (k + 15 + off - half) + tlen + 3) & ~3) * 4 +
+                  CB * k * k * 2 ||
+      tiles_h * TH < H || segs * NT * 16 < W || warps < 1 || warps > 8 || a[17] * NI < B) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_banded(x, w, bias, y, a, stream);
 }

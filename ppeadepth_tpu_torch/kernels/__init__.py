@@ -7,9 +7,11 @@ run on the card went through the kernels.
 """
 
 # lk_dwconv counts kernel A's forward launches (serving and training),
-# lk_dwconv_dx its input-gradient launches in the training backward
-launch_counts = {"lk_dwconv": 0, "lk_dwconv_dx": 0, "ffn_fused": 0,
-                 "plane_sweep": 0, "warp_fwd": 0, "warp_bwd": 0}
+# lk_dwconv_dx its input-gradient launches in the training backward, and
+# lk_dwconv_banded those of either that took the banded (tensor-core)
+# instance
+launch_counts = {"lk_dwconv": 0, "lk_dwconv_dx": 0, "lk_dwconv_banded": 0,
+                 "ffn_fused": 0, "plane_sweep": 0, "warp_fwd": 0, "warp_bwd": 0}
 
 
 def reset_launch_counts() -> None:

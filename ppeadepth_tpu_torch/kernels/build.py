@@ -36,6 +36,8 @@ _SIGNATURES = {
     # x, w, bias, y, args (14 ints: lk_conv._args), stream
     "ppea_lk_dwconv_bf16": (_P, _P, _P, _P, _P, _P),
     "ppea_lk_dwconv_f32": (_P, _P, _P, _P, _P, _P),
+    # x, w, bias, y, args (20 ints: lk_conv._args of a BandPlan), stream
+    "ppea_lk_dwconv_banded_bf16": (_P, _P, _P, _P, _P, _P),
     # x, w_up, b_up, w_down, b_down, hidden, out, M, C, Hp, tile_up,
     # tile_down, stream
     "ppea_ffn_fused_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

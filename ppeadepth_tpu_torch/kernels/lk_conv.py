@@ -1,5 +1,18 @@
 """Depthwise conv (odd k up to 31): BN folding, kernel merging, kernel A and
-its launch plan (`lk_plan`: tile, instance and grid per shape).
+its launch plan (`lk_plan`: instance, tile and grid per shape).
+
+Kernel A's instance family rests on what the input shows, its dtype and k:
+bf16 at k >= 13 (every merged serving conv, training's large-kernel forward
+and input gradient) takes the banded instance on the tensor cores, each
+kernel row of each channel a banded (Toeplitz) product of 16-column tiles,
+`mma.sync` m16n8k16 with f32 accumulators (`band_plans`, `BandPlan`). Its
+products are bound by the tensor cores and shared memory's bandwidth about
+evenly, its input staging by the loads' latency; the plan weighs both. f32
+(the eval, TF32 off, `--lk_backend pallas`) keeps the CUDA-core FMA
+instances and every k <= 11 the wide bytes-bound ones (`lk_plans`,
+`LKPlan`). The banded plan's row groups take 8 rows of one image for the
+tall stages, or the same rows of 2-8 images for the short ones, where every
+kernel row of a product then lands inside the image.
 
 Counterparts in the JAX package:
   * `fuse_conv_bn`, `merge_reparam_kernels`: kernels/lk_conv.py:73-107;
@@ -149,14 +162,164 @@ _TUNED = {(96, 320, 128, 3, torch.float32): (2, 4, 3),
           (6, 20, 1024, 5, torch.bfloat16): (6, 1, 3)}
 
 
-def lk_plan(B: int, H: int, W: int, C: int, k: int, dtype) -> LKPlan:
-    """The launch kernel A takes for these shapes: a measured tile from
-    `_TUNED`, else the first of `lk_plans`. Pure Python: the CPU tests
-    check that it covers every output once."""
+def lk_fma_plan(B: int, H: int, W: int, C: int, k: int, dtype) -> LKPlan:
+    """The CUDA-core (FMA) launch for these shapes: a measured tile from
+    `_TUNED`, else the first of `lk_plans`."""
     tuned = _TUNED.get((H, W, C, k, dtype))
     if tuned is not None:
         return _make_plan(B, H, W, C, k, 2 if dtype == torch.bfloat16 else 4, *tuned)
     return lk_plans(B, H, W, C, k, dtype)[0]
+
+
+# ---- the banded (tensor-core) instances: bf16, k >= BAND_MIN_K ----
+
+BAND_MIN_K = 13
+BAND_CB = 4           # channels per block (csrc: BAND_CB)
+BAND_TILE = 16        # output columns of one m16n8k16 product
+BAND_ROWS = 8         # image rows of one product (NI images x NR rows)
+BAND_NT = (1, 2, 3, 4, 5)  # 16-column tiles of a warp's task (instances)
+BAND_MAX_WARPS = 8
+
+
+def band_reg_cap(nt: int) -> int:
+    """Registers a thread of the NT instance may hold: its accumulators
+    (BAND_CB * nt * 4) set the 256-thread blocks its launch bounds keep
+    resident (csrc: band_min_blocks), 4, 3 or 2."""
+    return REGS_PER_SM // 256 // (4 if nt <= 2 else 3 if nt == 3 else 2)
+
+
+class BandPlan(NamedTuple):
+    """One launch of kernel A's banded instance: blocks of BAND_CB channels
+    (grid x) by `ni` images and `th` output rows (grid y: `img_groups` x
+    `tiles_h`); a warp's task is `nr` rows of each of the `ni` images by
+    `nt` 16-column tiles of one of `segs` column segments, `j` input
+    chunks a tile. Shared memory: per channel a plane of `ni` images x
+    `rows` halo rows of `pitch` columns (`off` zero columns left of the
+    image), `img_stride` apart, and a zero row, `chan_stride` elements a
+    channel; then the band tables, a row of `tlen` words per (channel, dy),
+    `tstride` words apart (consecutive rows share their zeros); then the
+    block's k*k taps."""
+    ni: int
+    nr: int
+    th: int
+    nt: int
+    j: int
+    off: int
+    rows: int
+    pitch: int
+    img_stride: int
+    chan_stride: int
+    tlen: int
+    tstride: int
+    segs: int
+    tiles_h: int
+    img_groups: int
+    groups: int
+    warps: int
+    smem: int
+    grid: tuple
+    blocks_per_sm: int
+
+
+def band_geometry(k: int):
+    """(off, j): zero columns left of the image in a channel plane (the
+    halo rounded up to 16 bytes) and the 16-column input chunks that hold
+    the band of 16 outputs."""
+    half = k // 2
+    off = (half + 7) & ~7
+    return off, (half + off + 31) // 16
+
+
+def _band_plan(B, H, W, C, k, ni, th, nt, warps):
+    nr = BAND_ROWS // ni
+    off, j = band_geometry(k)
+    tiles_w = -(-W // BAND_TILE)
+    segs = -(-tiles_w // nt)
+    cols = (segs * nt + j - 1) * BAND_TILE
+    # a pitch of an odd number of 16-byte units, and images whose offsets
+    # continue the rows' pattern: the eight rows an ldmatrix reads (NR rows
+    # of NI images) fall in eight bank quarters
+    pitch = 8 * (cols // 8 | 1)
+    rows = min(th + k - 1, H)
+    s8 = -(-rows * pitch // 8)
+    if ni > 1:
+        s8 += (nr * (pitch // 8) - s8) % 8
+    img_stride = 8 * s8
+    chan_stride = ni * img_stride + pitch
+    tlen = 14 + 16 * j
+    tstride = k + 15 + off - k // 2
+    tables = -(-((BAND_CB * k - 1) * tstride + tlen) // 4) * 4  # words, to 16 bytes
+    smem = BAND_CB * chan_stride * 2 + tables * 4 + BAND_CB * k * k * 2
+    tiles_h, img_groups = -(-H // th), -(-B // ni)
+    groups = -(-C // BAND_CB)
+    threads = 32 * warps
+    bps = min(SMEM_PER_SM // (smem + SMEM_RESERVED),
+              REGS_PER_SM // (threads * band_reg_cap(nt)), THREADS_PER_SM // threads, 32)
+    return BandPlan(ni, nr, th, nt, j, off, rows, pitch, img_stride, chan_stride,
+                    tlen, tstride, segs, tiles_h, img_groups, groups, warps, smem,
+                    (groups, img_groups * tiles_h), bps)
+
+
+def _band_cost(p: BandPlan, B, H, W, k):
+    """A model of a banded plan's time in SM clocks, fitted to
+    `chip_smoke.py --kernel A --sweep` on an H100 (PERF.md). A task's step
+    (one channel, one kernel row) issues nt * j products, ~1.5 clocks each
+    on the SM's tensor cores, and reads 2j+1 band words and nt+j-1 input
+    chunks, 1 and 2 shared-memory wavefronts each (a clock each); the step
+    takes the longer. Steps: the kernel rows each row group's rows reach.
+    Per block add its staging (the L2 sectors of its pixels, latency-bound);
+    both slower with fewer warps resident (of 32) and the tasks' last round
+    short of warps; blocks run in waves of the SM's resident blocks."""
+    half = k // 2
+    steps = 0
+    for t in range(p.tiles_h):
+        h0 = t * p.th
+        y_end = min(H, h0 + p.th)
+        for y0 in range(h0, y_end, p.nr):
+            ylast = min(y0 + p.nr, y_end) - 1
+            steps += min(k - 1, half + H - 1 - y0) - max(0, half - ylast) + 1
+    step = max(1.5 * p.nt * p.j, 2 * p.j + 1 + 2 * (p.nt + p.j - 1))
+    tasks = p.th // p.nr * p.segs
+    imbalance = (-(-tasks // p.warps) * p.warps / tasks) ** 0.25
+    occ = min(1.0, p.warps * p.blocks_per_sm / 32)
+    compute = step * BAND_CB * p.segs * steps / p.tiles_h * imbalance / occ ** 0.2
+    staged = 8 * p.ni * p.rows * W * 32 / 64 / occ ** 0.5
+    blocks = p.grid[0] * p.grid[1]
+    slots = SMS * p.blocks_per_sm
+    return -(-blocks // slots) * p.blocks_per_sm * (compute + staged)
+
+
+@functools.lru_cache(maxsize=None)
+def band_plans(B: int, H: int, W: int, C: int, k: int) -> tuple:
+    """The banded instance's launches for x [B, C, H, W] bf16 and a k x k
+    kernel, best first by `_band_cost`: NI images of 1, 2, 4 or 8, for
+    each count of row tiles the shortest tile, every NT and 2, 4 or 8
+    warps, whose shared memory fits."""
+    tiles_w = -(-W // BAND_TILE)
+    cands = []
+    for ni in (1, 2, 4, 8):
+        nr = BAND_ROWS // ni
+        # for each count n of row tiles, the shortest tile of whole row groups
+        ths = {-(-H // n) for n in range(1, -(-H // nr) + 1)}
+        for th in sorted({-(-t // nr) * nr for t in ths}):
+            for nt in BAND_NT:
+                if nt > tiles_w and nt > 1:
+                    continue
+                for warps in (2, 4, BAND_MAX_WARPS):
+                    p = _band_plan(B, H, W, C, k, ni, th, nt, warps)
+                    if p.smem <= SMEM_PER_BLOCK and p.blocks_per_sm >= 1 and p.grid[1] <= 65535:
+                        cands.append(p)
+    return tuple(sorted(cands, key=lambda p: (_band_cost(p, B, H, W, k), p.ni, -p.th)))
+
+
+def lk_plan(B: int, H: int, W: int, C: int, k: int, dtype):
+    """The launch kernel A takes for these shapes: the banded (tensor-core)
+    instance for bf16 and k >= BAND_MIN_K, else the CUDA-core instance of
+    `lk_fma_plan`. The choice rests on dtype and k alone. Pure Python: the
+    CPU tests check that it covers every output once."""
+    if dtype == torch.bfloat16 and k >= BAND_MIN_K:
+        return band_plans(B, H, W, C, k)[0]
+    return lk_fma_plan(B, H, W, C, k, dtype)
 
 
 def fuse_conv_bn(kernel, gamma, beta, mean, var, eps: float = 1e-5):
@@ -226,43 +389,55 @@ def _validate(x, w, b):
         raise ValueError("lk_depthwise: w must be contiguous")
 
 
-def _args(B, H, W, C, k, flip, p: LKPlan):
-    """The kernel's int arguments, as the C entry reads them."""
-    return (ctypes.c_int * 14)(B, H, W, C, k, int(flip), p.th, p.tws, p.cb,
-                               p.rows, p.pitch, p.smem, p.grid[0], p.nbuf)
+_BAND_ENTRY = "ppea_lk_dwconv_banded_bf16"
+
+
+def _args(B, H, W, C, k, flip, p, dtype):
+    """(C entry, its int arguments as the entry reads them) of plan `p`."""
+    if isinstance(p, BandPlan):
+        return _BAND_ENTRY, (ctypes.c_int * 20)(
+            B, H, W, C, k, int(flip), p.ni, p.nr, p.th, p.pitch, p.img_stride,
+            p.chan_stride, p.tlen, p.segs, p.tiles_h, p.warps, p.smem,
+            p.img_groups, p.nt, p.j)
+    return _ENTRY[dtype], (ctypes.c_int * 14)(
+        B, H, W, C, k, int(flip), p.th, p.tws, p.cb, p.rows, p.pitch, p.smem,
+        p.grid[0], p.nbuf)
 
 
 @functools.lru_cache(maxsize=None)
 def lk_launch_args(B, H, W, C, k, dtype, flip):
     """`_args` under `lk_plan`, built once per shape."""
-    return _args(B, H, W, C, k, flip, lk_plan(B, H, W, C, k, dtype))
+    return _args(B, H, W, C, k, flip, lk_plan(B, H, W, C, k, dtype), dtype)
 
 
-_fns: dict = {}  # dtype -> the library's entry point
+_fns: dict = {}  # C entry name -> the library's function
 
 
 def _launch(x, w, b, counter: str, flip: bool = False, plan=None):
     """Kernel A on validated CUDA tensors (on `w` flipped in both spatial
     axes if `flip`), with `lk_plan`'s launch unless `plan` is given;
-    counts the launch under `counter`."""
+    counts the launch under `counter`, and a banded one under
+    `lk_dwconv_banded` too."""
     B, C, H, W = x.shape
     k = w.shape[-1]
     dtype = x.dtype
     x_ptr = x.data_ptr()
     if x_ptr % 16:
         raise ValueError("lk_depthwise: x must be 16-byte aligned")
-    args = (lk_launch_args(B, H, W, C, k, dtype, flip) if plan is None
-            else _args(B, H, W, C, k, flip, plan))
+    entry, args = (lk_launch_args(B, H, W, C, k, dtype, flip) if plan is None
+                   else _args(B, H, W, C, k, flip, plan, dtype))
     y = torch.empty_like(x)  # channels_last, as x is
-    fn = _fns.get(dtype)
+    fn = _fns.get(entry)
     if fn is None:
-        fn = _fns[dtype] = getattr(library(), _ENTRY[dtype])
+        fn = _fns[entry] = getattr(library(), entry)
     # the current stream's handle without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = fn(x_ptr, w.data_ptr(), b.data_ptr() if b is not None else None,
              y.data_ptr(), args, stream)
-    check(err, _ENTRY[dtype])
+    check(err, entry)
     launch_counts[counter] += 1
+    if entry == _BAND_ENTRY:
+        launch_counts["lk_dwconv_banded"] += 1
     return y
 
 

@@ -105,8 +105,8 @@ def test_lk_dwconv_matches_plain(cuda, B, C, H, W, k, bias, dtype):
 
 
 def test_lk_dx_launches_kernel_a_once(cuda):
-    """d/dx reads the flipped kernel in place: one launch of kernel A and
-    no other launch of the port's."""
+    """d/dx reads the flipped kernel in place: one launch of kernel A (bf16
+    k=27: the banded instance) and no other launch of the port's."""
     rng = np.random.RandomState(1)
     g = _t(rng, (2, 12, 40, 64), 1.0, cuda, torch.bfloat16).permute(0, 3, 1, 2)
     w = _t(rng, (64, 1, 27, 27), 1.0 / 27, cuda, torch.bfloat16)
@@ -114,9 +114,43 @@ def test_lk_dx_launches_kernel_a_once(cuda):
     dx = _input_grad(g, w)
     torch.cuda.synchronize()
     assert {n: kernels.launch_counts[n] - n0[n] for n in n0} == {
-        n: int(n == "lk_dwconv_dx") for n in n0}
+        n: int(n in ("lk_dwconv_dx", "lk_dwconv_banded")) for n in n0}
     ref = depthwise_plain(g.float(), w.flip(-1, -2).float())
     assert (dx.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+# the banded (tensor-core) instance at every main-path bf16 large-kernel
+# shape: each stage at 640x192 (KITTI), 512x192 (CityScapes) and 320x480
+# (DDAD), at the serving batch (32), the training batch and its half (12,
+# 6) and B=1
+LK_BANDED = sorted({(B, C, h // 4 >> i, w // 4 >> i, k)
+                    for h, w in ((192, 640), (192, 512), (320, 480))
+                    for i, (C, _, _, k) in enumerate(STAGES)
+                    for B in ((32, 12, 6, 1) if (h, w) != (320, 480) else (1, 6))})
+
+
+@pytest.mark.parametrize("B,C,H,W,k", LK_BANDED, ids=lambda v: str(v))
+def test_lk_banded_matches_plain(cuda, B, C, H, W, k):
+    """The banded instance, forward with bias and d/dx (the flipped kernel
+    in place), against the plain version in f32 within kernel A's bf16
+    tolerance (1e-2 of the peak); each call one launch of kernel A, counted
+    under lk_dwconv (lk_dwconv_dx) and lk_dwconv_banded."""
+    rng = np.random.RandomState(B + k)
+    x = _bf16(rng, (B, H, W, C), 1.0, cuda).permute(0, 3, 1, 2)
+    w = _bf16(rng, (C, 1, k, k), 1.0 / k, cuda)
+    b = _bf16(rng, (C,), 0.1, cuda)
+    for fn, ref_w, bias, counter in ((lk_depthwise, w, b, "lk_dwconv"),
+                                     (_input_grad, w.flip(-1, -2), None, "lk_dwconv_dx")):
+        n0 = dict(kernels.launch_counts)
+        y = fn(x, w, b) if bias is not None else fn(x, w)
+        torch.cuda.synchronize()
+        assert {n: kernels.launch_counts[n] - n0[n] for n in n0} == {
+            n: int(n in (counter, "lk_dwconv_banded")) for n in n0}
+        ref = depthwise_plain(x.float(), ref_w.float(), bias.float() if bias is not None else None)
+        err = (y.float() - ref).abs().max().item()
+        assert y.dtype == torch.bfloat16
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        assert err <= 1e-2 * ref.abs().max().item(), (counter, err)
 
 
 # kernel #3 (the Pallas depthwise_conv2d_pallas) at the eval forward's

@@ -19,8 +19,8 @@ from ppeadepth_tpu_torch.kernels.ffn_fused import (
     K_TILE, TILES, FoldedFFN, ffn_fused, ffn_fused_plain,
     ffn_packed_plain, ffn_plan, fold_ffn_params, pack_ffn)
 from ppeadepth_tpu_torch.kernels.lk_conv import (
-    MAX_THREADS, SMEM_PER_BLOCK, WIDE_MAX_K, _input_grad, depthwise_plain,
-    lk_depthwise, lk_plan)
+    BAND_CB, BAND_MIN_K, MAX_THREADS, SMEM_PER_BLOCK, WIDE_MAX_K, BandPlan,
+    LKPlan, _input_grad, band_geometry, depthwise_plain, lk_depthwise, lk_plan)
 from ppeadepth_tpu_torch.models.replknet import REPLK_CONFIGS
 from tests.torch_parity import nhwc_to_torch, perturb, torch_to_nhwc
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
@@ -203,14 +203,66 @@ LK_RAGGED = [(20, 9, 21, 7), (7, 9, 21, 5), (20, 9, 21, 27), (13, 11, 23, 9),
              (3, 1, 1, 31), (1000, 5, 3, 13)]
 
 
+def _band_plan_coverage(B, H, W, C, k, p):
+    """Walk the banded instance's blocks, warp tasks and accumulator
+    elements as csrc/lk_dwconv.cu `lk_dwconv_kernel_banded` maps them
+    (channel group = blockIdx.x; images and row tile = blockIdx.y; task =
+    row group of NR rows of NI images x column segment; element = tile t,
+    column g (+8), group row 2q (+1)) and count how often each (image,
+    row, column) and each channel is written; check the shared-memory
+    layout the kernel indexes."""
+    half = k // 2
+    off, j = band_geometry(k)
+    assert (p.off, p.j, p.ni * p.nr) == (off, j, 8) and p.th % p.nr == 0
+    seen = np.zeros((B, H, W), int)
+    n = np.arange(8)
+    for gy in range(p.grid[1]):
+        b0, h0 = gy // p.tiles_h * p.ni, gy % p.tiles_h * p.th
+        y_end = min(H, h0 + p.th)
+        for task in range(p.th // p.nr * p.segs):
+            rg, seg = divmod(task, p.segs)
+            y0 = h0 + rg * p.nr
+            ylast = min(y0 + p.nr, y_end) - 1
+            if ylast < y0:
+                continue
+            ox = seg * p.nt * 16 + np.arange(p.nt * 16)
+            oy, bb = y0 + n % p.nr, b0 + n // p.nr
+            ok_x, ok_n = ox < W, (oy <= ylast) & (bb < B)
+            np.add.at(seen, (bb[ok_n][:, None], oy[ok_n][:, None], ox[ok_x][None]), 1)
+        # the tile's halo rows fit each image's staged rows
+        assert min(H - 1, h0 + p.th - 1 + half) - max(0, h0 - half) < p.rows
+    assert (seen == 1).all()
+    chans = np.zeros(C, int)
+    for g in range(p.grid[0]):
+        c = g * BAND_CB + np.arange(BAND_CB)
+        np.add.at(chans, c[c < C], 1)
+    assert (chans == 1).all()
+    assert p.pitch % 16 == 8 and p.pitch >= (p.segs * p.nt + j - 1) * 16
+    assert p.img_stride >= p.rows * p.pitch and p.img_stride % 8 == 0
+    # the eight rows an ldmatrix reads fall in eight 16-byte bank quarters
+    offs = (n // p.nr) * p.img_stride + (n % p.nr) * p.pitch
+    assert len({o // 8 % 8 for o in offs}) == 8
+    assert p.chan_stride == p.ni * p.img_stride + p.pitch
+    tables = -(-((BAND_CB * k - 1) * p.tstride + p.tlen) // 4) * 4
+    assert p.smem == (BAND_CB * p.chan_stride * 2 + tables * 4
+                      + BAND_CB * k * k * 2) <= SMEM_PER_BLOCK
+    assert p.grid[1] <= 65535 and 1 <= p.warps <= 8 and p.blocks_per_sm >= 1
+    return p
+
+
 def _lk_plan_coverage(B, H, W, C, k, dtype):
     """Walk kernel A's blocks and threads as csrc/lk_dwconv.cu maps them
     (channel group = blockIdx.y; block blockIdx.x takes tiles blockIdx.x,
     + gridDim.x, ... of the B * tiles_h * tiles_w (image, tile) pairs;
     thread = channel pair, row, strip) and count how often each output
     (image, row, column, channel) is written; per image the map is a
-    product of rows, columns and channels."""
+    product of rows, columns and channels. The banded instance (bf16,
+    k >= 13) by `_band_plan_coverage`."""
     p = lk_plan(B, H, W, C, k, dtype)
+    banded = dtype == torch.bfloat16 and k >= BAND_MIN_K
+    assert isinstance(p, BandPlan if banded else LKPlan)
+    if banded:
+        return _band_plan_coverage(B, H, W, C, k, p)
     lanes = p.cb // 2
     tw = p.twt * p.tws
     n_tiles = B * p.tiles_h * p.tiles_w
@@ -255,9 +307,31 @@ def _lk_plan_coverage(B, H, W, C, k, dtype):
 def test_lk_plan_covers_every_output(B, H, W, C, k, dtype):
     """Kernel A's plan at the main paths' shapes (rep_size b, l, xl): every
     output (b, h, w, c) exactly once, shared memory within 227 KB, and two
-    or more resident blocks per SM."""
+    or more resident blocks per SM (the CUDA-core instances)."""
     p = _lk_plan_coverage(B, H, W, C, k, dtype)
-    assert p.blocks_per_sm >= 2
+    if isinstance(p, LKPlan):
+        assert p.blocks_per_sm >= 2
+
+
+# every large-kernel conv of the serving and training paths and the evals:
+# the four stages at 640x192 (KITTI), 512x192 (CityScapes) and 320x480
+# (DDAD, 15 wide at stage 4), the serving batch, the training batch and its
+# half, 3 and 1; with the stage's small kernel (k=5)
+_LK_FAMILY = sorted({(B, h // 4 >> i, w // 4 >> i, C, kk)
+                     for h, w in ((192, 640), (192, 512), (320, 480))
+                     for i, (C, k) in enumerate(zip(REPLK_CONFIGS["b"]["channels"],
+                                                    REPLK_CONFIGS["b"]["large_kernel_sizes"]))
+                     for B in (32, 12, 6, 3, 1) for kk in (k, 5)})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,k", _LK_FAMILY, ids=lambda v: str(v))
+def test_lk_plan_family(B, H, W, C, k, dtype):
+    """The instance family rests on dtype and k alone: every bf16 k >= 13
+    shape takes the banded (tensor-core) instance, every f32 shape and
+    every k <= 11 the CUDA-core ones; each plan covers every output once."""
+    p = _lk_plan_coverage(B, H, W, C, k, dtype)
+    assert isinstance(p, BandPlan) == (dtype == torch.bfloat16 and k >= 13)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
